@@ -1,0 +1,131 @@
+"""Wrapper of the brute-force NN kernel (port of
+``repro.kernels.nn_search.nn_search_kernel``).
+
+:func:`nn_search_kernel` takes pre-augmented operands (``kernels.ref``) and
+returns the running (min score, argmin) per source column. The device of
+the tensors decides what runs:
+
+  * CPU tensors: the plain version, :func:`repro_torch.kernels.ref.blocked_argmin`;
+  * CUDA tensors: the hand-written kernel ``csrc/nn_search.cu``, or an error.
+    There is no fallback from the card to the plain version.
+
+``nn_search_kernel.launches`` counts the kernel's launches (one per call on
+a CUDA tensor, however many frames the batch holds) so a run can show that
+its main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+AUG_ROWS = ref.AUG_ROWS
+BLOCK_N = 128   # queries per block: N must be a multiple (csrc kBlockN)
+TILE_M = 1024   # targets per shared-memory tile: M must be a multiple
+BLOCKS_PER_SM = 8  # grid the kernel aims for when choosing the M split
+
+_c_void_p = ctypes.c_void_p
+_c_int = ctypes.c_int
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = build.load("nn_search")
+    lib.fpps_nn_search.argtypes = [_c_void_p] * 6 + [_c_int] * 4 + [_c_void_p]
+    lib.fpps_nn_search.restype = _c_int
+    lib.fpps_nn_block_n.restype = _c_int
+    lib.fpps_nn_tile_m.restype = _c_int
+    if (lib.fpps_nn_block_n(), lib.fpps_nn_tile_m()) != (BLOCK_N, TILE_M):
+        raise RuntimeError("csrc/nn_search.cu tile sizes disagree with "
+                           "kernels/nn_search.py")
+    return lib
+
+
+def _check(src_aug: torch.Tensor, dst_aug: torch.Tensor) -> None:
+    for name, t in (("src_aug", src_aug), ("dst_aug", dst_aug)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != 3 or t.shape[1] != AUG_ROWS:
+            raise ValueError(f"{name} must be (B, {AUG_ROWS}, L), got "
+                             f"{tuple(t.shape)}")
+        if t.shape[2] == 0:
+            raise ValueError(f"{name} is empty")
+    if src_aug.shape[0] != dst_aug.shape[0]:
+        raise ValueError(f"batch sizes differ: {src_aug.shape[0]} vs "
+                         f"{dst_aug.shape[0]}")
+    if src_aug.device != dst_aug.device:
+        raise ValueError(f"operands on different devices: {src_aug.device} "
+                         f"vs {dst_aug.device}")
+
+
+def num_splits(batch: int, n: int, m: int, sm_count: int) -> int:
+    """Ranges the target axis is split into, so that the grid holds about
+    ``BLOCKS_PER_SM`` blocks per SM even for one small frame."""
+    query_blocks = batch * (n // BLOCK_N)
+    want = -(-BLOCKS_PER_SM * sm_count // query_blocks)
+    return max(1, min(want, m // TILE_M, 65535))
+
+
+def nn_search_kernel(src_aug: torch.Tensor, dst_aug: torch.Tensor):
+    """Nearest target column of every source column.
+
+    Args:
+      src_aug: (8, N) or (B, 8, N) float32 from ``ref.augment_source``.
+      dst_aug: (8, M) or (B, 8, M) float32 from ``ref.augment_target``. On
+        the card N must be a multiple of ``BLOCK_N`` and M of ``TILE_M``
+        (``kernels.ops`` pads), and both must be contiguous.
+
+    Returns:
+      ``(best_d2, best_idx)``: (..., N) float32 scores, unclamped, and
+      (..., N) int32 indices; the earliest index wins a tie.
+    """
+    unbatched = src_aug.dim() == 2
+    if unbatched:
+        src_aug, dst_aug = src_aug[None], dst_aug[None]
+    _check(src_aug, dst_aug)
+    if src_aug.device.type == "cpu":
+        d2, idx = ref.blocked_argmin(src_aug, dst_aug, TILE_M)
+    elif src_aug.device.type == "cuda":
+        d2, idx = _launch(src_aug, dst_aug)
+    else:
+        raise ValueError(f"no NN search for device {src_aug.device}")
+    return (d2[0], idx[0]) if unbatched else (d2, idx)
+
+
+def _launch(src_aug: torch.Tensor, dst_aug: torch.Tensor):
+    b, _, n = src_aug.shape
+    m = dst_aug.shape[2]
+    if n % BLOCK_N or m % TILE_M:
+        raise ValueError(f"N={n} must be a multiple of {BLOCK_N} and M={m} "
+                         f"of {TILE_M}; pad with kernels.ops")
+    if not (src_aug.is_contiguous() and dst_aug.is_contiguous()):
+        raise ValueError("src_aug and dst_aug must be contiguous")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the grid's 65535 limit")
+    lib = _library()
+    dev = src_aug.device
+    splits = num_splits(b, n, m,
+                        torch.cuda.get_device_properties(dev)
+                        .multi_processor_count)
+    best_d2 = torch.empty((b, n), dtype=torch.float32, device=dev)
+    best_idx = torch.empty((b, n), dtype=torch.int32, device=dev)
+    scratch = splits if splits > 1 else 0  # one split writes the outputs
+    part_d2 = torch.empty((b, scratch, n), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((b, scratch, n), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.fpps_nn_search(
+            src_aug.data_ptr(), dst_aug.data_ptr(), part_d2.data_ptr(),
+            part_idx.data_ptr(), best_d2.data_ptr(), best_idx.data_ptr(),
+            b, n, m, splits, stream)
+    if err != 0:
+        raise RuntimeError(f"nn_search kernel launch failed: CUDA error {err}")
+    nn_search_kernel.launches += 1
+    return best_d2, best_idx
+
+
+nn_search_kernel.launches = 0
