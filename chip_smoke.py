@@ -16,7 +16,9 @@ that fails raises. Phases:
      Indices must agree except on near-ties (plain scores of the two
      candidates within 1e-4), ties must go to the first index exactly,
      and max |d2 difference| <= 1e-3. Times the kernel, the plain version
-     and one PyTorch call (``matmul`` + ``min``) with CUDA events.
+     and one PyTorch call (``matmul`` + ``min``) on the device alone
+     (``device_ms``: CUDA events around back-to-back calls queued behind a
+     busy-wait, so the wrappers' host overhead is outside the window).
   2. Table-I path: ``FppsICP(engine="cuda").align()`` on seq 0 frame 0 at
      the paper protocol (4096 sampled source points, full target, <= 50
      iterations, 1.0 m gate, epsilon 1e-5), held to the ground truth and
@@ -25,10 +27,27 @@ that fails raises. Phases:
      seq-0 pairs (one kernel launch per iteration for the whole batch) and
      on one 4x-scene pair (target bucket 131072): per-frame latency,
      iterations, and the kernel's share of an iteration.
+  4. Grid kernels vs plain on the card: ``candidate_sweep_kernel`` against
+     ``ref.candidate_sweep`` and the fused pass (``moment_planes``) against
+     ``ref.fused_moment_planes`` on the candidate rows of a (128, 128, 32),
+     1 m, K=32 grid: the seq-0 frame-0 target with its 4096 source points
+     moved by T_gt (B=1), the 8-pair batch, the 4x scene, a ragged N=3000, a
+     duplicated-point target (the first slot must win) and queries outside
+     the lattice (d2 = inf, all-zero moments). Slots and d2 within 1e-6
+     relative, planes within 1e-6, the 18 sums within 2e-5; kernel, plain
+     and bound times; ``polish_stats``; two voxel builds bit-identical.
+  5. Pyramid path: ``FppsICP(engine="pyramid").align()`` at the Table-I
+     protocol (twice, bit-identical), the fused pyramid, the fused
+     ``"cuda"`` engine, odometry's ``levels=()`` huber-0.3 engine,
+     ``register_pairs`` on the 8 seq-0 pairs (unfused and fused) and the 4x
+     scene, each held to the k-d tree and T_gt with phase 2's bands and to
+     exact launch counts; device kernels and busy time of one polish
+     iteration; one iteration of the brute, grid and fused chains.
 
-The launch counter is set to 0 just before each main-path phase (2, 3) and
-read just after. The last lines are the ``{"kernels": [...]}`` report, the
-card line from ``nvidia-smi`` and ``{"ok": true, "device": {...}}``.
+Every kernel count is set to 0 just before each main-path run (phases 2, 3
+and 5) and read just after. The last lines are the ``{"kernels": [...]}``
+report, the card line from ``nvidia-smi`` and ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -82,7 +101,9 @@ def rt_err(Ta, Tb):
 
 
 def time_ms(torch, fn, warmup=3, reps=25):
-    """Median of ``reps`` CUDA-event timings of ``fn`` after a warm-up."""
+    """Median of ``reps`` CUDA-event timings of one call of ``fn`` after a
+    warm-up, each from an idle stream: host and device time together (the
+    whole eager iteration of a chain)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -96,6 +117,74 @@ def time_ms(torch, fn, warmup=3, reps=25):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms(torch):
+    """Clock cycles of ``torch.cuda._sleep`` per ms on this card, measured
+    once."""
+    if not _CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(cycles // 10)  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _CYCLES_PER_MS[0]
+
+
+def device_ms(torch, fn, reps=20, blocks=5, warmup=3):
+    """Device time of one call of ``fn``: ``(median, min, max, ahead)`` in
+    ms over ``blocks`` blocks, each the CUDA-event time of ``reps``
+    back-to-back calls divided by ``reps``.
+
+    Each block is queued behind a busy-wait kernel (``torch.cuda._sleep``)
+    sized to twice the host's time for ``reps`` calls, so the host has
+    enqueued every call before the first one starts and the window holds
+    device time only, not the wrappers' host overhead. If the first block's
+    start event fired before the host finished enqueueing, it is retried
+    twice with a doubled wait; if it never got ahead, ``fn`` syncs the host
+    inside (a plain version that copies a scalar to the card), no wait can
+    help, and the remaining blocks run without one: ``ahead`` is then False
+    and the time includes those host gaps.
+    """
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycles = int(_sleep_cycles_per_ms(torch) * (2.0 * reps * host_ms + 0.5))
+    times, ahead = [], True
+    for block in range(blocks):
+        for attempt in range(3 if block == 0 else 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if ahead:
+                torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            got_ahead = not start.query()
+            end.synchronize()
+            if got_ahead or not ahead:
+                break
+            cycles *= 2
+        ahead = ahead and got_ahead
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times), min(times), max(times), ahead
+
+
+def fmt_ms(t):
+    """``median [min-max]`` of a :func:`device_ms` result."""
+    return f"{t[0]:.4f} [{t[1]:.4f}-{t[2]:.4f}]" + ("" if t[3] else " host")
 
 
 def bound(b, n, m):
@@ -168,24 +257,24 @@ def phase1(torch, np, scenes):
             check(bool((idx_k < len(base)).all()),
                   "ties: a later copy of a duplicated target won")
         np_, mp_ = src_aug.shape[-1], dst_aug.shape[-1]
-        kernel_ms = time_ms(torch, lambda: nn_search_kernel(src_aug, dst_aug))
-        plain_ms = time_ms(torch, lambda: ref.blocked_argmin(
+        kern = device_ms(torch, lambda: nn_search_kernel(src_aug, dst_aug))
+        plain = device_ms(torch, lambda: ref.blocked_argmin(
             src_aug, dst_aug, TILE_M))
-        library_ms = time_ms(torch, lambda: torch.matmul(
+        lib = device_ms(torch, lambda: torch.matmul(
             src_aug.mT, dst_aug).min(dim=-1))
         bound_ms, bound_by = bound(b, np_, mp_)
         row = dict(case=name, shape=[b, n, m], padded=[b, np_, mp_],
                    idx_mismatch=n_diff, near_tie_gap=gap, max_abs_d2=max_d2,
-                   kernel_ms=kernel_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   kernel_ms=kern[0], kernel_ms_spread=kern[1:3],
+                   plain_ms=plain[0], plain_ahead=plain[3],
+                   library_ms=lib[0], bound_ms=bound_ms, bound_by=bound_by)
         rows.append(row)
         log(f"phase1 {name}: B={b} N={n} M={m} (padded {np_}x{mp_}) "
             f"idx_mismatch={n_diff} (near-tie gap {gap:.3g}) "
-            f"max|dd2|={max_d2:.3g} | kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, matmul+min {library_ms:.4f} ms, bound "
+            f"max|dd2|={max_d2:.3g} | kernel {fmt_ms(kern)} ms, plain "
+            f"{fmt_ms(plain)} ms, matmul+min {fmt_ms(lib)} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}); "
-            f"{bound_ms / kernel_ms:.1%} of bound")
+            f"{bound_ms / kern[0]:.1%} of bound")
     return rows
 
 
@@ -241,19 +330,31 @@ def phase2(torch, np, scenes):
 
 
 def device_profile(torch, fn):
-    """(device kernels, device-busy ms) of one call of ``fn`` from the
-    profiler, or (None, None) when it records no device activity."""
+    """(device kernels, device-busy ms, host launch calls) of one call of
+    ``fn`` from the profiler, or (None, None, launches) when it records no
+    device activity.
+
+    One profiling cycle (no schedule) with ``acc_events=True``, so no event
+    is cleared between cycles. Device kernels are the CUDA-side kernel
+    records (memcpy and memset records excluded); host launch calls are the
+    CPU-side ``cudaLaunchKernel``-family runtime records, which the host
+    writes synchronously. The two agree when the device trace is whole.
+    """
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if str(e.device_type).endswith("CUDA")]
+    events = prof.events()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    launches = sum(1 for e in events
+                   if not str(e.device_type).endswith("CUDA")
+                   and "LaunchKernel" in e.name)
     if not kernels:
-        return None, None
+        return None, None, launches
     busy = sum(e.device_time_total for e in kernels) / 1e3
-    return len(kernels), busy
+    return len(kernels), busy, launches
 
 
 def phase3(torch, np, scenes, kernel_ms):
@@ -300,6 +401,7 @@ def phase3(torch, np, scenes, kernel_ms):
             pairs, params._replace(max_iterations=1)))
         p2 = device_profile(torch, lambda: engine.register_pairs(
             pairs, params._replace(max_iterations=2)))
+        per_iter_launches = p2[2] - p1[2]
         if p1[0] is None or p2[0] is None:
             per_iter_kernels = per_iter_busy = None
         else:
@@ -311,10 +413,12 @@ def phase3(torch, np, scenes, kernel_ms):
                          iterations=iters, iter_ms=iter_ms,
                          kernel_ms=kms, kernel_share=share,
                          device_kernels_per_iter=per_iter_kernels,
+                         host_launches_per_iter=per_iter_launches,
                          device_busy_ms_per_iter=per_iter_busy)
         busy = ("not measured" if per_iter_busy is None else
-                f"{per_iter_kernels} device kernels and {per_iter_busy:.3f} "
-                f"ms device-busy per iteration (profiler)")
+                f"{per_iter_kernels} device kernels ({per_iter_launches} "
+                f"host launch calls) and {per_iter_busy:.3f} ms device-busy "
+                f"per iteration (profiler)")
         log(f"phase3 {name}: {len(triples)} frame(s), buckets N="
             f"{batch.src.shape[1]} M={batch.dst.shape[1]}, launches="
             f"{launches} | wall {wall_ms:.2f} ms = {wall_ms / len(triples):.2f}"
@@ -327,11 +431,422 @@ def phase3(torch, np, scenes, kernel_ms):
     p = torch.randn(8, 4096, 3, device="cuda", generator=gen)
     q, w = p + 0.1, torch.ones(8, 4096, device="cuda")
     estimate_rigid_transform(p, q, w)  # warm-up
-    k, busy = device_profile(torch, lambda: estimate_rigid_transform(p, q, w))
-    out["kabsch_b8"] = dict(device_kernels=k, device_busy_ms=busy)
-    log("phase3 Kabsch/SVD step alone (B=8, N=4096): " + (
+    runs = [device_profile(torch, lambda: estimate_rigid_transform(p, q, w))
+            for _ in range(3)]
+    k, busy, launches = runs[-1]
+    out["kabsch_b8"] = dict(device_kernels=[r[0] for r in runs],
+                            host_launches=[r[2] for r in runs],
+                            device_busy_ms=busy)
+    log("phase3 Kabsch/SVD step alone (B=8, N=4096), 3 profiled calls: " + (
         "not measured" if k is None else
-        f"{k} device kernels, {busy:.3f} ms device-busy (profiler)"))
+        f"{[r[0] for r in runs]} device kernels, {[r[2] for r in runs]} "
+        f"host launch calls, {busy:.3f} ms device-busy (profiler)"))
+    return out
+
+# Slice 2: the grid candidate sweep and the fused moment pass, over the
+# resident grid's default lattice (core.nn_search_grid.DEFAULT_GRID_DIMS)
+# at 1 m voxels.
+GRID_K = 32                 # max_per_cell: CK = 27 * 32 = 864
+GRID_FLOPS_PER_SLOT = 9     # 3 sub, 3 mul, 2 add, 1 compare
+SLOT_D2_RTOL = 1e-6         # kernel vs plain d2; near-tie slots likewise
+PLANE_RTOL = 1e-6           # fused per-query planes
+SUM_RTOL = 2e-5             # the 18 sums (tests/test_fused_icp.py bar)
+
+
+def grid_bound(rows, ck, out_bytes_per_row):
+    """Least time (ms) of one pass over (rows, ck, 3) candidates: every
+    input byte read once, every output byte written once, against the
+    direct-form flops; returns (ms, "bytes" | "operations")."""
+    bytes_s = (rows * ck * 12 + rows * 12 + rows * out_bytes_per_row) \
+        / PEAK_BYTES_PER_S
+    ops_s = rows * ck * GRID_FLOPS_PER_SLOT / PEAK_FP32_FLOPS
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def phase4(torch, np, scenes):
+    """Grid sweep and fused pass vs their plain versions on the card."""
+    from repro_torch.core.nn_search_grid import (DEFAULT_GRID_DIMS,
+                                                 gather_candidates,
+                                                 neighborhood_stats,
+                                                 nn_search_grid, take_slot)
+    from repro_torch.core.transform import transform_points
+    from repro_torch.data.collate import collate_pairs
+    from repro_torch.data.voxelize import build_voxel_grid, voxel_downsample
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_icp import P2P_MOMENTS, moment_planes
+    from repro_torch.kernels.nn_search_grid import candidate_sweep_kernel
+
+    dev = torch.device("cuda")
+
+    def tensor(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    def case(srcs, dsts, Ts, shift=(0.0, 0.0, 0.0)):
+        """Queries = sources moved by their T (B, N, 3); a batched grid over
+        the bucket-padded targets with dst_valid."""
+        batch = collate_pairs([(srcs[0], d) for d in dsts])
+        grid = build_voxel_grid(tensor(batch.dst), 1.0, DEFAULT_GRID_DIMS,
+                                valid=tensor(batch.dst_valid, torch.bool))
+        q = transform_points(tensor(np.stack(Ts)), tensor(np.stack(srcs)))
+        return q + tensor(shift), grid
+
+    pairs = scenes["seq0"]
+    src0, dst0, T0 = pairs[0]
+    src4, dst4, T4 = scenes["scene4x"]
+    base = dst0[:10240]
+    eye = np.eye(4, dtype=np.float32)
+    cases = {
+        "seq0_b1": case([src0], [dst0], [T0]),
+        "seq0_b8": case([s for s, _, _ in pairs], [d for _, d, _ in pairs],
+                        [T for _, _, T in pairs]),
+        "scene4x_b1": case([src4], [dst4], [T4]),
+        "ragged": case([src0[:3000]], [dst0], [T0]),
+        # every target point three times: the first copy's slot must win
+        "ties": case([base[::2][:4096] + np.float32(0.01)],
+                     [np.concatenate([base] * 3)], [eye]),
+        # the whole frame moved 500 m past the lattice: empty hoods
+        "outside": case([src0], [dst0], [T0], shift=(500.0, 0.0, 0.0)),
+    }
+    rows_out = []
+    for name, (q, grid) in cases.items():
+        b, n = q.shape[0], q.shape[1]
+        cand, cand_idx, cand_valid = gather_candidates(q, grid, GRID_K)
+        ck = cand.shape[-2]
+        sv = torch.ones(q.shape[:-1], dtype=torch.float32, device=dev)
+        d2_k, slot_k = candidate_sweep_kernel(q, cand)
+        torch.cuda.synchronize()
+        d2_p, slot_p = ref.candidate_sweep(q, cand)
+
+        def slot_d2(slot):  # plain d2 of a chosen slot, same arithmetic
+            d = q - take_slot(cand, slot)
+            return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+                + d[..., 2] * d[..., 2]
+
+        diff = slot_k != slot_p
+        n_diff = int(diff.sum())
+        gap = float(((slot_d2(slot_k) - d2_p).abs()
+                     / d2_p.abs().clamp_min(1e-30))[diff].max()) \
+            if n_diff else 0.0
+        d2_err = float(((d2_k - d2_p).abs()
+                        / d2_p.abs().clamp_min(1e-30)).max())
+        d2_abs = float((d2_k - d2_p).abs().max())
+        check(gap <= SLOT_D2_RTOL, f"grid {name}: {n_diff} slot mismatches, "
+              f"largest relative d2 gap {gap} > {SLOT_D2_RTOL}")
+        check(d2_err <= SLOT_D2_RTOL, f"grid {name}: relative d2 error "
+              f"{d2_err} > {SLOT_D2_RTOL}")
+        has = cand_valid.any(-1)
+        if name == "ties":
+            idx = take_slot(cand_idx, slot_k)
+            check(bool((idx[has] < len(base)).all()),
+                  "ties: a later copy of a duplicated point won")
+        if name == "outside":
+            check(not bool(has.any()), "outside: a query saw candidates")
+            check(bool((d2_k > 1e29).all()), "outside: a finite winner")
+            d2_w = nn_search_grid(q, grid, max_per_cell=GRID_K)[0]
+            check(bool(torch.isinf(d2_w).all()),
+                  "outside: nn_search_grid gave a finite d2")
+
+        fused = []
+        robusts = ([("none", 0.5), ("huber", 0.3), ("tukey", 1.0)]
+                   if name == "seq0_b1" else [("none", 0.5)])
+        for robust, scale in robusts:
+            kw = dict(gate=1.0, robust_kernel=robust, robust_scale=scale)
+            pl_k = moment_planes(q, cand, sv, **kw)
+            torch.cuda.synchronize()
+            pl_p = ref.fused_moment_planes(q, cand, sv, **kw)
+            plane_ok = bool(((pl_k - pl_p).abs()
+                             <= PLANE_RTOL * pl_p.abs() + PLANE_RTOL).all())
+            plane_abs = float((pl_k - pl_p).abs().max())
+            s_k, s_p = pl_k.sum(-1), pl_p.sum(-1)
+            sum_ok = bool(((s_k - s_p).abs()
+                           <= SUM_RTOL * s_p.abs() + SUM_RTOL).all())
+            sum_rel = float(((s_k - s_p).abs()
+                             / s_p.abs().clamp_min(1e-30)).max())
+            check(plane_ok, f"fused {name} {robust}: a plane is off its plain "
+                  f"version by more than {PLANE_RTOL} relative (max abs "
+                  f"{plane_abs})")
+            check(sum_ok, f"fused {name} {robust}: a moment sum is off its "
+                  f"plain version by more than {SUM_RTOL} relative")
+            if name == "outside":
+                check(bool((pl_k == 0).all()), "outside: non-zero moments")
+            fused.append(dict(robust=robust, max_abs_plane=plane_abs,
+                              max_rel_sum=sum_rel,
+                              weight_sum=[float(x) for x in
+                                          s_k[..., P2P_MOMENTS.index("w")]]))
+
+        stats = neighborhood_stats(q, grid, GRID_K)
+        stats = {f: float(v.mean()) for f, v in zip(stats._fields, stats)}
+        rows = b * n
+        sweep = device_ms(torch, lambda: candidate_sweep_kernel(q, cand))
+        sweep_plain = device_ms(torch, lambda: ref.candidate_sweep(q, cand))
+        fused_t = device_ms(torch, lambda: moment_planes(q, cand, sv,
+                                                         gate=1.0))
+        fused_plain = device_ms(torch, lambda: ref.fused_moment_planes(
+            q, cand, sv, gate=1.0))
+        sweep_bound, sweep_by = grid_bound(rows, ck, 8)
+        fused_bound, fused_by = grid_bound(rows, ck, 4 + 4 * len(P2P_MOMENTS))
+        row = dict(case=name, shape=[b, n, ck], slot_mismatch=n_diff,
+                   near_tie_rel_gap=gap, max_rel_d2=d2_err,
+                   max_abs_d2=d2_abs, fused=fused, polish_stats=stats,
+                   sweep_ms=sweep[0], sweep_ms_spread=sweep[1:3],
+                   sweep_plain_ms=sweep_plain[0],
+                   sweep_plain_ahead=sweep_plain[3],
+                   sweep_bound_ms=sweep_bound, sweep_bound_by=sweep_by,
+                   fused_ms=fused_t[0], fused_ms_spread=fused_t[1:3],
+                   fused_plain_ms=fused_plain[0],
+                   fused_plain_ahead=fused_plain[3],
+                   fused_bound_ms=fused_bound, fused_bound_by=fused_by)
+        rows_out.append(row)
+        log(f"phase4 {name}: B={b} N={n} CK={ck} slot_mismatch={n_diff} "
+            f"max rel d2 {d2_err:.3g} | fused max|dplane| "
+            f"{max(f['max_abs_plane'] for f in fused):.3g}, max rel sum "
+            f"{max(f['max_rel_sum'] for f in fused):.3g} "
+            f"({', '.join(f['robust'] for f in fused)}) | sweep "
+            f"{fmt_ms(sweep)} ms (plain {fmt_ms(sweep_plain)}, bound "
+            f"{sweep_bound:.4f} {sweep_by}), fused {fmt_ms(fused_t)} ms "
+            f"(plain {fmt_ms(fused_plain)}, bound {fused_bound:.4f} "
+            f"{fused_by}) | polish_stats "
+            + " ".join(f"{k}={v:.4f}" for k, v in stats.items()))
+        del cand, cand_idx, cand_valid
+
+    # Deterministic centroids and tables: two builds, the same bits.
+    dst = tensor(collate_pairs([(src0, dst0)]).dst[0])
+    a = voxel_downsample(dst, 4.0, max_points=8192)
+    b = voxel_downsample(dst, 4.0, max_points=8192)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)),
+          "voxel_downsample differs between two runs on the card")
+    g1 = build_voxel_grid(dst, 1.0, DEFAULT_GRID_DIMS)
+    g2 = build_voxel_grid(dst, 1.0, DEFAULT_GRID_DIMS)
+    check(all(torch.equal(x, y) for x, y in zip(g1[:5], g2[:5])),
+          "build_voxel_grid differs between two runs on the card")
+    log("phase4 voxel_downsample and build_voxel_grid: bit-identical "
+        "between two runs")
+    return rows_out
+
+
+def counted(torch, fn):
+    """(result, wall ms, launches per kernel) of ``fn`` with every kernel
+    count set to 0 just before it and read just after."""
+    from repro_torch.kernels.fused_icp import fused_moment_sweep
+    from repro_torch.kernels.nn_search import nn_search_kernel
+    from repro_torch.kernels.nn_search_grid import candidate_sweep_kernel
+    counters = dict(nn_search=nn_search_kernel,
+                    candidate_sweep=candidate_sweep_kernel,
+                    fused_moment_sweep=fused_moment_sweep)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return out, wall_ms, {k: c.launches for k, c in counters.items()}
+
+
+def nn_rmse(np, T, src, dst, gate=1.0):
+    """The k-d tree's RMSE measure at transform T: gated true-nearest-
+    neighbour residuals of T·src in dst (float64, scipy)."""
+    from scipy.spatial import cKDTree
+    T = np.asarray(T, np.float64)
+    moved = np.asarray(src, np.float64) @ T[:3, :3].T + T[:3, 3]
+    dist, _ = cKDTree(np.asarray(dst, np.float64)).query(moved, k=1)
+    inl = dist <= gate
+    return float(np.sqrt((dist[inl] ** 2).sum() / max(inl.sum(), 1)))
+
+
+def hold_to_bands(np, name, T, rmse, base, T_gt, src, dst, own_rmse=True):
+    """Phase 2's bands: T against the k-d tree and T_gt, and the RMSE of T
+    measured the k-d tree's way (``nn_rmse``) against the k-d tree's. The
+    engine's own reported RMSE is held to the band too where it is the
+    same measure (``own_rmse``); a huber-weighted RMSE, or one over
+    candidate sets that ``max_per_cell`` truncated, is not."""
+    true_rmse = nn_rmse(np, T, src, dst)
+    d_true = abs(true_rmse - base.rmse)
+    d_rmse = abs(float(rmse) - base.rmse)
+    d_T = float(np.abs(T - base.T).max())
+    d_gt = float(np.abs(T - T_gt).max())
+    check(np.all(np.isfinite(T)), f"{name}: non-finite transform")
+    check(d_true <= RMSE_VS_KDTREE, f"{name}: nearest-neighbour rmse "
+          f"{true_rmse} off the k-d tree's {base.rmse} by {d_true}")
+    if own_rmse:
+        check(d_rmse <= RMSE_VS_KDTREE, f"{name}: rmse off the k-d tree by "
+              f"{d_rmse}")
+    check(d_T <= T_VS_KDTREE, f"{name}: transform off the k-d tree by {d_T}")
+    check(d_gt <= T_VS_GT, f"{name}: transform off T_gt by {d_gt}")
+    return dict(rmse=float(rmse), nn_rmse=true_rmse, kdtree_rmse=base.rmse,
+                d_rmse=d_rmse, d_nn_rmse=d_true, max_abs_T_vs_kdtree=d_T,
+                max_abs_T_vs_gt=d_gt)
+
+
+def phase5(torch, np, scenes):
+    """The pyramid path and the fused point-to-point iteration."""
+    from repro_torch.core import FppsICP, ICPParams, get_engine
+    from repro_torch.core.baseline import kdtree_icp
+    from repro_torch.core.engine import _mask_invalid
+    from repro_torch.core.icp import (ICPState, _default_correspond_fn,
+                                      _fused_icp_iteration, _icp_iteration)
+    from repro_torch.core.nn_search_grid import DEFAULT_GRID_DIMS, grid_nn_fn
+    from repro_torch.core.pyramid import DEFAULT_LEVELS
+    from repro_torch.data.collate import collate_pairs
+    from repro_torch.data.voxelize import build_voxel_grid
+    from repro_torch.kernels.fused_icp import make_fused_fn
+    from repro_torch.kernels.ops import resident_nn_fn
+
+    coarse = sum(int(lv[1]) for lv in DEFAULT_LEVELS)
+    P = ICPParams(max_iterations=50, max_correspondence_distance=1.0,
+                  transformation_epsilon=1e-5)  # the paper's protocol
+    src, dst, T_gt = scenes["seq0"][0]
+    base = kdtree_icp(src, dst, 50, 1.0, 1e-5)
+    out, totals = {}, dict(nn_search=0, candidate_sweep=0,
+                           fused_moment_sweep=0)
+
+    def record(name, launches, expect, wall_ms, iters, frames, extra):
+        check(launches == expect, f"{name}: launches {launches}, expected "
+              f"{expect}")
+        for k, v in launches.items():
+            totals[k] += v
+        row = dict(launches=launches, wall_ms=wall_ms,
+                   per_frame_ms=wall_ms / frames, iterations=iters,
+                   **extra)
+        out[name] = row
+        log(f"phase5 {name}: iterations {iters}, launches {launches} | wall "
+            f"{wall_ms:.2f} ms, {wall_ms / frames:.2f} ms/frame | "
+            + " ".join(f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
+                       for k, v in extra.items()))
+
+    # 1. Table-I align() through the pyramid, twice: bit-identical.
+    def align():
+        reg = FppsICP(engine="pyramid")
+        reg.hardwareInitialize()
+        reg.setInputSource(src)
+        reg.setInputTarget(dst)
+        reg.setMaxCorrespondenceDistance(1.0)
+        reg.setMaxIterationCount(50)
+        reg.setTransformationEpsilon(1e-5)
+        return reg, reg.align()
+
+    align()  # warm-up: first-call allocations, not counted
+    (reg, T), wall, launches = counted(torch, align)
+    (_, T2), _, _ = counted(torch, align)
+    check(np.array_equal(T, T2), "align(): two runs differ")
+    it = int(reg.last_result.iterations)
+    record("align_pyramid", launches,
+           dict(nn_search=coarse, candidate_sweep=it, fused_moment_sweep=0),
+           wall, it, 1, dict(ms_per_iteration=wall / (coarse + it),
+                             bit_identical_rerun=True,
+                             **hold_to_bands(np, "align_pyramid", T,
+                                             reg.last_result.rmse, base,
+                                             T_gt, src, dst)))
+
+    # 2-4. Single-frame engines: pyramid fused, cuda fused, odometry's.
+    singles = (
+        ("pyramid_fused", get_engine("pyramid"), P._replace(fused=True),
+         coarse, True),
+        ("cuda_fused", get_engine("cuda"), P._replace(fused=True), 0, True),
+        ("odometry_pyramid", get_engine("pyramid", levels=()),
+         P._replace(max_iterations=30, robust_kernel="huber",
+                    robust_scale=0.3), 0, False),
+    )
+    for name, engine, params, n_coarse, fused in singles:
+        engine.register(src, dst, params)  # warm-up
+        res, wall, launches = counted(torch, lambda: engine.register(
+            src, dst, params))
+        it = int(res.iterations)
+        T = res.T.cpu().numpy()
+        record(name, launches,
+               dict(nn_search=n_coarse, candidate_sweep=0 if fused else it,
+                    fused_moment_sweep=it if fused else 0),
+               wall, it, 1, dict(ms_per_iteration=wall / (n_coarse + it),
+                                 **hold_to_bands(
+                                     np, name, T, res.rmse, base, T_gt, src,
+                                     dst, own_rmse=params.robust_kernel
+                                     == "none")))
+
+    # 5-6. register_pairs: 8 seq-0 pairs unfused and fused, the 4x scene.
+    engine = get_engine("pyramid")
+    batches = (("pairs_b8", scenes["seq0"], P),
+               ("pairs_b8_fused", scenes["seq0"], P._replace(fused=True)),
+               ("scene4x", [scenes["scene4x"]], P))
+    for name, triples, params in batches:
+        pairs = [(s, d) for s, d, _ in triples]
+        engine.register_pairs(pairs, params)  # warm-up
+        (res, batch), wall, launches = counted(
+            torch, lambda: engine.register_pairs(pairs, params))
+        iters = [int(x) for x in res.iterations.cpu()]
+        Ts, rmses = res.T.cpu().numpy(), res.rmse.cpu().numpy()
+        bands = [hold_to_bands(np, f"{name}[{k}]", Ts[k], rmses[k],
+                               kdtree_icp(s, d, 50, 1.0, 1e-5), Tg, s, d,
+                               own_rmse=name != "scene4x")
+                 for k, (s, d, Tg) in enumerate(triples)]
+        n_it = params.max_iterations
+        extra = dict(ms_per_iteration=wall / (coarse + n_it),
+                     max_d_rmse=max(x["d_rmse"] for x in bands),
+                     max_d_nn_rmse=max(x["d_nn_rmse"] for x in bands),
+                     max_abs_T_vs_kdtree=max(x["max_abs_T_vs_kdtree"]
+                                             for x in bands),
+                     max_abs_T_vs_gt=max(x["max_abs_T_vs_gt"]
+                                         for x in bands))
+        if name != "scene4x":  # device time of one polish iteration
+            p1 = device_profile(torch, lambda: engine.register_pairs(
+                pairs, params._replace(max_iterations=1)))
+            p2 = device_profile(torch, lambda: engine.register_pairs(
+                pairs, params._replace(max_iterations=2)))
+            extra.update(
+                device_kernels_per_polish_iter=(
+                    None if p1[0] is None or p2[0] is None
+                    else p2[0] - p1[0]),
+                host_launches_per_polish_iter=p2[2] - p1[2],
+                device_busy_ms_per_polish_iter=(
+                    None if p1[1] is None or p2[1] is None
+                    else p2[1] - p1[1]))
+        record(name, launches,
+               dict(nn_search=coarse,
+                    candidate_sweep=0 if params.fused else n_it,
+                    fused_moment_sweep=n_it if params.fused else 0),
+               wall, iters, len(triples), extra)
+
+    # One iteration of each chain at B=1 (registration_latency.py's
+    # Table-IV analogue): brute kernel + Kabsch, grid kernel + Kabsch,
+    # fused pass + moment solve.
+    dev = torch.device("cuda")
+    batch = collate_pairs([(src, dst)])
+    s_t = torch.as_tensor(batch.src[0], device=dev)
+    d_t = torch.as_tensor(batch.dst[0], device=dev)
+    dv = torch.as_tensor(batch.dst_valid[0], device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    state = ICPState(T=torch.as_tensor(T_gt, device=dev), delta=inf,
+                     rmse=inf, iteration=torch.tensor(0, device=dev),
+                     inlier_frac=torch.tensor(0.0, device=dev),
+                     degenerate=torch.tensor(False, device=dev))
+    grid = build_voxel_grid(d_t, 1.0, DEFAULT_GRID_DIMS, valid=dv)
+    brute = _default_correspond_fn(d_t, P, resident_nn_fn(
+        _mask_invalid(d_t, dv)), None)
+    grid_nn = grid_nn_fn(grid, max_per_cell=GRID_K)
+
+    def grid_corr(s):
+        d2, _, matched = grid_nn(s)
+        return d2, matched
+
+    fused_fn = make_fused_fn(grid, P, max_per_cell=GRID_K)
+    chains = {
+        "brute+kabsch": lambda: _icp_iteration(s_t, state, P, brute),
+        "grid+kabsch": lambda: _icp_iteration(s_t, state, P, grid_corr),
+        "fused+moments": lambda: _fused_icp_iteration(s_t, state, P,
+                                                      fused_fn),
+    }
+    out["chains"] = {}
+    for name, fn in chains.items():
+        ms = time_ms(torch, fn)
+        k, busy, launches = device_profile(torch, fn)
+        out["chains"][name] = dict(ms=ms, device_kernels=k,
+                                   host_launches=launches,
+                                   device_busy_ms=busy)
+        log(f"phase5 chain {name}: {ms:.3f} ms per iteration (CUDA events) |"
+            + (" device not measured" if k is None else
+               f" {k} device kernels ({launches} host launch calls), "
+               f"{busy:.3f} ms device-busy (profiler)"))
+    out["launch_totals"] = totals
     return out
 
 
@@ -392,10 +907,18 @@ def main(argv=None):
     report["phase2"] = phase2(torch, np, scenes)
     report["phase3"] = phase3(torch, np, scenes,
                               {k: v["kernel_ms"] for k, v in cases.items()})
+    grid_cases = {r["case"]: r for r in phase4(torch, np, scenes)}
+    report["phase4"] = list(grid_cases.values())
+    report["phase5"] = phase5(torch, np, scenes)
+    totals = report["phase5"]["launch_totals"]
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(
-        v.get("launches", 0) for v in report["phase3"].values())
+        v.get("launches", 0) for v in report["phase3"].values()) \
+        + totals["nn_search"]
     check(launches > 0, "the main path never launched nn_search")
+    for name in ("candidate_sweep", "fused_moment_sweep"):
+        check(totals[name] > 0, f"the main path never launched {name}")
+    g = grid_cases["seq0_b1"]
     report["kernels"] = [dict(
         name="nn_search", route="cuda",
         source="src/repro_torch/kernels/csrc/nn_search.cu",
@@ -403,12 +926,40 @@ def main(argv=None):
         replaces_wrapper="src/repro/kernels/nn_search.py::nn_search_kernel",
         launches=launches,
         max_abs_err=max(r["max_abs_d2"] for r in cases.values()),
-        ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
+        ms=main_case["kernel_ms"], ms_spread=main_case["kernel_ms_spread"],
+        plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
         library_ms=main_case["library_ms"], shape=main_case["shape"],
         idx_mismatch=sum(r["idx_mismatch"] for r in cases.values()),
         max_abs_d2=max(r["max_abs_d2"] for r in cases.values()),
-        kernel_ms=main_case["kernel_ms"])]
+        kernel_ms=main_case["kernel_ms"]), dict(
+        name="candidate_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/nn_search_grid.cu",
+        replaces="src/repro/kernels/nn_search_grid.py:40",
+        replaces_wrapper=("src/repro/kernels/nn_search_grid.py::"
+                          "candidate_sweep_kernel"),
+        launches=totals["candidate_sweep"],
+        max_abs_err=max(r["max_abs_d2"] for r in grid_cases.values()),
+        ms=g["sweep_ms"], ms_spread=g["sweep_ms_spread"],
+        plain_ms=g["sweep_plain_ms"],
+        bound_ms=g["sweep_bound_ms"], bound_by=g["sweep_bound_by"],
+        library_ms=None, shape=g["shape"],
+        slot_mismatch=sum(r["slot_mismatch"] for r in grid_cases.values())),
+        dict(
+        name="fused_moment_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/fused_icp.cu",
+        replaces="src/repro/kernels/fused_icp.py:104",
+        replaces_wrapper=("src/repro/kernels/fused_icp.py::"
+                          "fused_moment_sweep"),
+        launches=totals["fused_moment_sweep"],
+        max_abs_err=max(f["max_abs_plane"] for r in grid_cases.values()
+                        for f in r["fused"]),
+        ms=g["fused_ms"], ms_spread=g["fused_ms_spread"],
+        plain_ms=g["fused_plain_ms"],
+        bound_ms=g["fused_bound_ms"], bound_by=g["fused_bound_by"],
+        library_ms=None, shape=g["shape"],
+        max_rel_sum=max(f["max_rel_sum"] for r in grid_cases.values()
+                        for f in r["fused"]))]
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1, default=float))

@@ -1,5 +1,6 @@
-"""Core registration stack of the port: transforms, NN search, ICP, engines
-and the Table-I API."""
+"""Core registration stack of the port: transforms, NN search (brute force
+and voxel grid), ICP, the coarse-to-fine pyramid, engines and the Table-I
+API."""
 from repro_torch.core.api import FppsICP
 from repro_torch.core.engine import (CallableEngine, KernelEngine,
                                      RegistrationEngine, TorchEngine,
@@ -10,14 +11,18 @@ from repro_torch.core.icp import (ICPParams, ICPResult, ICPState, icp,
                                   params_from_reference, result_to_numpy,
                                   scrub_nonfinite)
 from repro_torch.core.nn_search import nn_search
+from repro_torch.core.nn_search_grid import GridQueryStats
+from repro_torch.core.pyramid import PyramidEngine, icp_pyramid, polish_stats
 from repro_torch.core.transform import (estimate_rigid_transform,
                                         make_transform, transform_points)
+from repro_torch.data.voxelize import build_voxel_grid, voxel_downsample
 
 __all__ = [
     "FppsICP", "CallableEngine", "KernelEngine", "RegistrationEngine",
     "TorchEngine", "available_engines", "get_engine", "register_engine",
     "ICPParams", "ICPResult", "ICPState", "icp", "icp_batch",
     "icp_fixed_iterations", "params_from_reference", "result_to_numpy",
-    "scrub_nonfinite", "nn_search", "estimate_rigid_transform",
-    "make_transform", "transform_points",
+    "scrub_nonfinite", "nn_search", "GridQueryStats", "PyramidEngine",
+    "icp_pyramid", "polish_stats", "build_voxel_grid", "voxel_downsample",
+    "estimate_rigid_transform", "make_transform", "transform_points",
 ]

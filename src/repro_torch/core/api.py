@@ -31,9 +31,12 @@ class FppsICP:
 
     def __init__(self, engine: str | RegistrationEngine = "cuda",
                  chunk: int = 2048, device="cuda", **engine_kwargs):
-        """engine: ``"cuda"`` (the CUDA kernel; default), ``"torch"`` (plain
-        PyTorch brute force), a ``RegistrationEngine`` instance, or a
-        callable ``nn_fn(src, dst) -> (d2, idx)``. ``device`` defaults to
+        """engine: ``"cuda"`` (the brute-force CUDA kernel; default),
+        ``"pyramid"`` (coarse-to-fine ICP with a voxel-grid polish, through
+        the grid candidate-sweep kernel), ``"torch"`` (plain PyTorch brute
+        force), a ``RegistrationEngine`` instance, or a callable
+        ``nn_fn(src, dst) -> (d2, idx)``. ``engine_kwargs`` go to the
+        engine (e.g. ``levels=()`` for the pyramid). ``device`` defaults to
         ``"cuda"`` and raises without it; pass ``"cpu"`` explicitly."""
         self._engine = get_engine(engine, device=device, chunk=chunk,
                                   **engine_kwargs)

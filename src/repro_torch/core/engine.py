@@ -6,10 +6,15 @@ the ``register`` API:
   * ``"torch"`` (:class:`TorchEngine`, the reference's ``"xla"``): the plain
     chunked brute force of ``core.nn_search``, with native ``dst_valid``
     masking;
-  * ``"cuda"`` (:class:`KernelEngine`, the reference's ``"pallas"`` with
-    ``fused=False``): the hand-written CUDA kernel, with the target
-    augmented once per frame (``kernels.ops.resident_nn_fn``). On CPU
-    tensors the kernel wrapper runs its plain version;
+  * ``"cuda"`` (:class:`KernelEngine`, the reference's ``"pallas"``): the
+    hand-written brute-force NN kernel, with the target augmented once per
+    frame (``kernels.ops.resident_nn_fn``); with ``ICPParams.fused`` the
+    fused moment kernel over a resident voxel grid instead
+    (``kernels.fused_icp``). On CPU tensors each kernel wrapper runs its
+    plain version;
+  * ``"pyramid"`` (``core.pyramid.PyramidEngine``): coarse-to-fine ICP
+    whose full-resolution polish runs the grid candidate sweep (or, fused,
+    the moment kernel);
   * a user callable ``nn_fn(src, dst) -> (d2, idx)`` (:class:`CallableEngine`).
 
 Every engine has a device, ``"cuda"`` unless the caller passes
@@ -20,9 +25,9 @@ collates variable-size pairs first.
 
 The reference's jit caches and their trace counters
 (``RegistrationEngine.trace_count``/``traces``) have no counterpart: PyTorch
-runs eagerly and compiles nothing per shape. The ``pyramid``,
-``distributed``, ``slots`` and ``sharded-slots`` engines are not ported yet;
-asking for them raises ``NotImplementedError`` naming their slice.
+runs eagerly and compiles nothing per shape. The ``distributed``,
+``slots`` and ``sharded-slots`` engines are not ported yet; asking for them
+raises ``NotImplementedError`` naming their slice.
 
 Typical use::
 
@@ -165,35 +170,44 @@ class TorchEngine(RegistrationEngine):
 
 class KernelEngine(RegistrationEngine):
     """CUDA kernel engine: the brute-force NN kernel against a target
-    augmented once per frame.
+    augmented once per frame, or with ``params.fused`` the fused moment
+    kernel against a resident voxel grid.
 
     As in the reference's ``"pallas"`` engine, both clouds are scrubbed of
-    non-finite rows first, then the masked target rows are moved to the far
-    sentinel and the (…, 8, M') target operand is built before the loop;
-    each iteration augments only the source.
+    non-finite rows first. Unfused, the masked target rows then move to the
+    far sentinel and the (…, 8, M') target operand is built before the
+    loop; each iteration augments only the source. Fused, ``core.icp``
+    builds a counting-sort grid over the valid target rows at the
+    pyramid polish's defaults (``kernels.fused_icp.default_fused_fn``) and
+    each iteration is one gather and one fused pass.
     """
 
     name = "cuda"
 
     def setup(self) -> None:
-        """Initialise the card and build/load the kernel library."""
+        """Initialise the card and build the kernel libraries."""
         super().setup()
         if self.device.type == "cuda":
-            build.load("nn_search")
+            build.build_all(["nn_search", "fused_icp"])
 
-    def _prepare(self, src, dst, sv, dv):
+    def _prepare(self, src, dst, params, sv, dv):
+        """Scrubbed clouds and source mask, and what ``core.icp`` needs for
+        the iteration: ``dict(dst_valid=...)`` fused (it builds the grid),
+        ``dict(nn_fn=...)`` unfused."""
         src, sv = scrub_nonfinite(src, sv)
         dst, dv = scrub_nonfinite(dst, dv)
+        if params.fused:
+            return src, dst, sv, dict(dst_valid=dv)
         dst = _mask_invalid(dst, dv)
-        return src, dst, sv, resident_nn_fn(dst)
+        return src, dst, sv, dict(nn_fn=resident_nn_fn(dst))
 
     def _register(self, src, dst, params, T0, sv, dv) -> ICPResult:
-        src, dst, sv, nn_fn = self._prepare(src, dst, sv, dv)
-        return icp(src, dst, params, T0, nn_fn=nn_fn, src_valid=sv)
+        src, dst, sv, search = self._prepare(src, dst, params, sv, dv)
+        return icp(src, dst, params, T0, src_valid=sv, **search)
 
     def _register_batch(self, src, dst, params, T0, sv, dv) -> ICPResult:
-        src, dst, sv, nn_fn = self._prepare(src, dst, sv, dv)
-        return icp_batch(src, dst, params, T0, nn_fn=nn_fn, src_valid=sv)
+        src, dst, sv, search = self._prepare(src, dst, params, sv, dv)
+        return icp_batch(src, dst, params, T0, src_valid=sv, **search)
 
 
 class CallableEngine(RegistrationEngine):
@@ -215,7 +229,6 @@ _ENGINES: dict[str, Callable[..., RegistrationEngine]] = {}
 _SHARED: dict = {}  # (name, device, sorted kwargs) -> engine instance
 # Reference engines that later slices port (ROADMAP queue 1).
 _NOT_PORTED = {
-    "pyramid": "slice 2 (ROADMAP queue 1, item 3)",
     "slots": "slice 5 (ROADMAP queue 1, item 6)",
     "distributed": "slice 6 (ROADMAP queue 1, item 6)",
     "sharded-slots": "slice 6 (ROADMAP queue 1, item 6)",
@@ -268,3 +281,8 @@ def get_engine(spec, device="cuda", **kwargs) -> RegistrationEngine:
 
 register_engine("torch", TorchEngine)
 register_engine("cuda", KernelEngine)
+
+# Imported for its side effect: registers the "pyramid" engine. It lives in
+# its own module (the voxel and grid stack); importing it last keeps the
+# pyramid -> engine -> pyramid cycle harmless.
+from repro_torch.core import pyramid as _pyramid  # noqa: E402,F401

@@ -17,9 +17,12 @@ less than epsilon is frozen: its state no longer changes.
     ``max_iterations`` with the freeze mask and no host sync (the
     reference's scan and its vmap).
 
-Only the point-to-point minimiser of the paper is ported so far; the
-point-to-plane minimiser and the fused single-pass iteration raise
-``NotImplementedError`` until slice 3 (ROADMAP queue 1, item 4).
+With ``ICPParams.fused`` the iteration body is one fused pass instead
+(``kernels.fused_icp``): ``fused_fn(src_t, src_valid)`` runs search, gate,
+IRLS weight and moment sums, and the step comes from the moments. Only the
+point-to-point minimiser of the paper is ported so far; the point-to-plane
+minimiser raises ``NotImplementedError`` until slice 3 (ROADMAP queue 1,
+item 4).
 """
 from __future__ import annotations
 
@@ -63,7 +66,7 @@ class ICPParams(NamedTuple):
     minimizer: str = "point_to_point"  # "point_to_plane": slice 3
     robust_kernel: str = "none"        # | "huber" | "tukey"
     robust_scale: float = 0.5          # huber delta / tukey cutoff, metres
-    fused: bool = False  # single-pass fused iteration: slice 3
+    fused: bool = False  # single-pass fused iteration (kernels.fused_icp)
 
 
 class ICPState(NamedTuple):
@@ -102,9 +105,6 @@ def _check_params(params: ICPParams) -> None:
     if params.minimizer == "point_to_plane":
         raise NotImplementedError("minimizer='point_to_plane' is not ported "
                                   f"yet: {_LATER}")
-    if params.fused:
-        raise NotImplementedError(f"ICPParams.fused is not ported yet: "
-                                  f"{_LATER}")
 
 
 def params_from_reference(d: dict) -> ICPParams:
@@ -160,6 +160,54 @@ def _icp_iteration(source: torch.Tensor, state: ICPState, params: ICPParams,
                     degenerate=state.degenerate | degenerate)
 
 
+def _fused_icp_iteration(source: torch.Tensor, state: ICPState,
+                         params: ICPParams, fused_fn: Callable,
+                         src_valid: torch.Tensor | None = None) -> ICPState:
+    """One ICP step for every lane through the fused moment pass.
+
+    ``fused_fn(src_t, src_valid)`` returns the Σ-moments
+    (``kernels.fused_icp.PointMoments``) with the lanes' leading
+    dimensions; the rest is the O(1) epilogue. Same semantics as
+    :func:`_icp_iteration`: same weights, same degenerate freeze, and the
+    post-step RMSE against the pre-step correspondences, here from the
+    uncentred moments (``rmse_from_moments``).
+    """
+    dtype = source.dtype
+    src_t = tf.transform_points(state.T, source)
+    m = fused_fn(src_t, src_valid)
+    degenerate = m.sw <= _DEGENERATE_WEIGHT_SUM
+    T_step = tf.estimate_from_moments(m.sw, m.sp, m.sq, m.spq).to(dtype)
+    eye = torch.eye(4, dtype=dtype, device=source.device)
+    T_delta = torch.where(degenerate[..., None, None], eye, T_step)
+    err = tf.rmse_from_moments(T_delta, m.sw, m.sp, m.sq, m.spq, m.spp,
+                               m.sqq).to(dtype)
+    if src_valid is None:
+        denom = float(source.shape[-2])
+    else:
+        denom = src_valid.to(dtype).sum(-1).clamp_min(1.0)
+    return ICPState(T=T_delta @ state.T, delta=tf.transform_delta(T_delta),
+                    rmse=torch.where(degenerate, float("inf"), err),
+                    iteration=state.iteration + 1,
+                    inlier_frac=(m.sw / denom).to(dtype),
+                    degenerate=state.degenerate | degenerate)
+
+
+def _resolve_fused_fn(target: torch.Tensor | None, params: ICPParams,
+                      fused_fn: Callable | None,
+                      dst_valid: torch.Tensor | None) -> Callable:
+    """The fused iteration: ``fused_fn`` if given, else a resident grid
+    over ``target`` (``kernels.fused_icp.default_fused_fn``)."""
+    if fused_fn is not None:
+        return fused_fn
+    if target is None:
+        raise ValueError("params.fused needs a target cloud (or an explicit "
+                         "fused_fn) to build the resident grid from")
+    # Imported here: kernels.fused_icp imports core.nn_search_grid, and so
+    # the core package, at import time.
+    from repro_torch.kernels.fused_icp import default_fused_fn
+    return default_fused_fn(target, params, dst_valid=dst_valid)
+
+
 def _default_correspond_fn(target: torch.Tensor, params: ICPParams,
                            nn_fn: Callable | None,
                            dst_valid: torch.Tensor | None) -> Callable:
@@ -191,13 +239,25 @@ def _select(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
 
 
 def _run(source, target, params: ICPParams, initial_transform, nn_fn,
-         correspond_fn, src_valid, dst_valid, stop_early: bool) -> ICPResult:
+         correspond_fn, src_valid, dst_valid, fused_fn,
+         stop_early: bool) -> ICPResult:
     _check_params(params)
     source, src_valid = scrub_nonfinite(source, src_valid)
     target, dst_valid = scrub_nonfinite(target, dst_valid)
-    if correspond_fn is None:
-        correspond_fn = _default_correspond_fn(target, params, nn_fn,
-                                               dst_valid)
+    if params.fused:
+        fused_fn = _resolve_fused_fn(target, params, fused_fn, dst_valid)
+
+        def step(state):
+            return _fused_icp_iteration(source, state, params, fused_fn,
+                                        src_valid)
+    else:
+        if correspond_fn is None:
+            correspond_fn = _default_correspond_fn(target, params, nn_fn,
+                                                   dst_valid)
+
+        def step(state):
+            return _icp_iteration(source, state, params, correspond_fn,
+                                  src_valid)
     lead = source.shape[:-2]
     dtype, dev = source.dtype, source.device
     if initial_transform is None:
@@ -215,7 +275,7 @@ def _run(source, target, params: ICPParams, initial_transform, nn_fn,
         active = state.delta > eps
         if stop_early and not bool(active.any()):
             break
-        new = _icp_iteration(source, state, params, correspond_fn, src_valid)
+        new = step(state)
         state = ICPState(*(_select(active, n, o) for n, o in zip(new, state)))
     converged = (state.delta <= eps) & ~state.degenerate
     return ICPResult(T=state.T, rmse=state.rmse, iterations=state.iteration,
@@ -229,7 +289,8 @@ def icp(source: torch.Tensor, target: torch.Tensor | None,
         nn_fn: Callable | None = None,
         correspond_fn: Callable | None = None,
         src_valid: torch.Tensor | None = None,
-        dst_valid: torch.Tensor | None = None) -> ICPResult:
+        dst_valid: torch.Tensor | None = None,
+        fused_fn: Callable | None = None) -> ICPResult:
     """Align ``source`` (..., N, 3) onto ``target`` (..., M, 3).
 
     ``nn_fn(src, dst) -> (d2, idx[, points])`` swaps the correspondence
@@ -240,19 +301,27 @@ def icp(source: torch.Tensor, target: torch.Tensor | None,
     padded rows. Non-finite rows are sentinel-masked first
     (:func:`scrub_nonfinite`). Stops when no lane is active, with one host
     sync per iteration.
+
+    With ``params.fused`` every iteration is one fused pass instead:
+    ``fused_fn(src_t, src_valid) -> PointMoments`` replaces the
+    correspondence stage (``nn_fn``/``correspond_fn`` are unused); without
+    one, a resident grid over ``target`` is built
+    (``kernels.fused_icp.default_fused_fn``).
     """
     return _run(source, target, params, initial_transform, nn_fn,
-                correspond_fn, src_valid, dst_valid, stop_early=True)
+                correspond_fn, src_valid, dst_valid, fused_fn,
+                stop_early=True)
 
 
 def icp_fixed_iterations(source, target, params: ICPParams = ICPParams(),
                          initial_transform=None, nn_fn=None,
                          correspond_fn=None, src_valid=None,
-                         dst_valid=None) -> ICPResult:
+                         dst_valid=None, fused_fn=None) -> ICPResult:
     """:func:`icp` run for exactly ``max_iterations`` steps with the freeze
     mask and no host sync: a fixed schedule, like the reference's scan."""
     return _run(source, target, params, initial_transform, nn_fn,
-                correspond_fn, src_valid, dst_valid, stop_early=False)
+                correspond_fn, src_valid, dst_valid, fused_fn,
+                stop_early=False)
 
 
 def icp_batch(sources: torch.Tensor, targets: torch.Tensor,
@@ -260,16 +329,18 @@ def icp_batch(sources: torch.Tensor, targets: torch.Tensor,
               initial_transforms: torch.Tensor | None = None,
               nn_fn: Callable | None = None,
               src_valid: torch.Tensor | None = None,
-              dst_valid: torch.Tensor | None = None) -> ICPResult:
+              dst_valid: torch.Tensor | None = None,
+              fused_fn: Callable | None = None) -> ICPResult:
     """Register ``sources[k]`` (B, N, 3) onto ``targets[k]`` (B, M, 3).
 
     The fixed-iteration loop over the whole batch at once: the per-lane
     freeze keeps each pair's early-convergence result, so it matches a
     per-pair :func:`icp` to float tolerance. ``src_valid`` (B, N) and
     ``dst_valid`` (B, M) come from ``collate_pairs``; ``initial_transforms``
-    is an optional (B, 4, 4) warm start. Every result field has a leading
+    is an optional (B, 4, 4) warm start; ``fused_fn`` serves
+    ``params.fused`` for the whole batch. Every result field has a leading
     batch axis.
     """
     return icp_fixed_iterations(sources, targets, params, initial_transforms,
                                 nn_fn=nn_fn, src_valid=src_valid,
-                                dst_valid=dst_valid)
+                                dst_valid=dst_valid, fused_fn=fused_fn)

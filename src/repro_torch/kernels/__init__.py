@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, their wrappers and plain versions.
 
-``ref`` holds the plain PyTorch versions, ``nn_search`` the kernel wrapper,
-``ops`` the padded entry points and ``build`` the ``nvcc`` build. Sources
+``ref`` holds the plain PyTorch versions; ``nn_search`` (brute-force NN),
+``nn_search_grid`` (grid candidate sweep) and ``fused_icp`` (fused
+point-to-point moment pass) the kernel wrappers; ``ops`` the padded
+entry points of the brute-force kernel and ``build`` the ``nvcc`` build. Sources
 live in ``csrc/`` and are compiled on the machine with the card, on first
 use; importing this package compiles nothing.
 """

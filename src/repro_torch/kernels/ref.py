@@ -1,14 +1,22 @@
-"""Plain PyTorch versions of the brute-force NN kernel (port of
-``repro.kernels.ref``): the augmented operands and the searches the CUDA
-kernel is held against.
+"""Plain PyTorch versions of the port's CUDA kernels (port of
+``repro.kernels.ref``): what each kernel is held against, and what its
+wrapper runs on CPU tensors.
 
-The kernel scores candidates through an augmented inner product
+Brute-force NN (``csrc/nn_search.cu``). The kernel scores candidates
+through an augmented inner product
 
     score[i, j] = src_aug[:, i] · dst_aug[:, j] = ||R p_i + t - q_j||²
 
 with ``src_aug`` rows ``[p', 1, |p'|², 0, 0, 0]`` and ``dst_aug`` rows
 ``[-2q, |q|², 1, 0, 0, 0]``. Every function takes an optional leading batch
 dimension: points (B, N, 3) give operands (B, 8, N).
+
+Candidate sweep (``csrc/nn_search_grid.cu``) and fused moment pass
+(``csrc/fused_icp.cu``) over per-query candidate rows (..., N, CK, 3). Their
+arithmetic is written out one IEEE operation at a time (d² as
+``(dx·dx + dy·dy) + dz·dz``, true divisions by a same-device tensor) in the
+order the kernels use, which compile it without FMA contraction; the
+winner is the lowest slot among equal d².
 """
 from __future__ import annotations
 
@@ -112,3 +120,64 @@ def nn_search_ref_blocked(src: torch.Tensor, dst: torch.Tensor,
     dst_aug = augment_target(dst, pad_to=m + (-m) % bm)
     d2, idx = blocked_argmin(src_aug, dst_aug, bm)
     return d2[..., :n].clamp_min(0.0), idx[..., :n]
+
+
+def candidate_sweep(q: torch.Tensor, cand: torch.Tensor):
+    """Rowwise argmin of the direct-form d² over each query's candidates.
+
+    q (..., N, 3), cand (..., N, CK, 3) fp32 -> ((..., N) fp32 best d²,
+    unclamped; (..., N) int32 slot, the lowest among equal d²).
+    """
+    d = q[..., None, :] - cand
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    best_d2, slot = torch.min(d2, dim=-1)  # first index on ties
+    return best_d2, slot.to(torch.int32)
+
+
+ROBUST_CODES = {"none": 0, "huber": 1, "tukey": 2}  # csrc/fused_icp.cu
+
+
+def fused_moment_planes(q: torch.Tensor, cand: torch.Tensor,
+                        sv: torch.Tensor, *, gate: float,
+                        robust_kernel: str = "none",
+                        robust_scale: float = 0.5) -> torch.Tensor:
+    """Per-query point-to-point moment planes of one fused ICP pass.
+
+    q (..., N, 3), cand (..., N, CK, 3), sv (..., N) fp32 -> (..., 18, N)
+    fp32 in ``kernels.fused_icp.P2P_MOMENTS`` order: w, w·p (3), w·q (3),
+    w·p⊗q (9, row-major), w·|p|², w·|q|². The winner of the candidate sweep is
+    gated (``d² <= gate²``, d² recomputed from its coordinates), masked by
+    ``sv`` and IRLS-weighted (huber: ``min(1, s / max(r, 1e-12))``; tukey:
+    ``(1 - u²)²`` for ``u = r / max(s, 1e-12) < 1``, with ``r = sqrt(d²)``).
+    """
+    if robust_kernel not in ROBUST_CODES:
+        raise ValueError(f"unknown robust kernel {robust_kernel!r}")
+    _, slot = candidate_sweep(q, cand)
+    wq = cand.gather(-2, slot.long()[..., None, None].expand(
+        *slot.shape, 1, 3))[..., 0, :]
+    px, py, pz = q.unbind(-1)
+    qx, qy, qz = wq.unbind(-1)
+    ex, ey, ez = px - qx, py - qy, pz - qz
+    d2 = ex * ex + ey * ey + ez * ez
+    gate2 = torch.tensor(float(gate) ** 2, dtype=torch.float32,
+                         device=q.device)
+    w = (d2 <= gate2).to(torch.float32) * sv
+    if robust_kernel != "none":
+        resid = torch.sqrt(d2.clamp_min(0.0))
+        if robust_kernel == "huber":
+            s = torch.tensor(float(robust_scale), dtype=torch.float32,
+                             device=q.device)
+            w = w * torch.clamp(s / resid.clamp_min(1e-12), max=1.0)
+        else:
+            c = torch.tensor(max(float(robust_scale), 1e-12),
+                             dtype=torch.float32, device=q.device)
+            u = resid / c
+            t = 1.0 - u * u
+            w = w * torch.where(u < 1.0, t * t, 0.0)
+    planes = [w, w * px, w * py, w * pz, w * qx, w * qy, w * qz]
+    for pi in (px, py, pz):
+        for qi in (qx, qy, qz):
+            planes.append(w * pi * qi)
+    planes.append(w * (px * px + py * py + pz * pz))
+    planes.append(w * (qx * qx + qy * qy + qz * qz))
+    return torch.stack(planes, -2)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, held to its plain version.
+"""The port's CUDA kernels on the card, held to their plain versions.
 
 Every test here is marked ``cuda`` and skips without a CUDA device: a CUDA
 kernel has no CPU mode. This file imports no JAX, so it also runs on a
@@ -6,9 +6,11 @@ machine with only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: indices agree except on near-ties (plain scores of the two
-candidates within 1e-3, the fp32 expanded-form noise at <= 60 m), scores
-within 1e-3; exact ties go to the first index.
+Tolerances: brute-force indices agree except on near-ties (plain scores of
+the two candidates within 1e-3, the fp32 expanded-form noise at <= 60 m),
+scores within 1e-3; exact ties go to the first index. The grid sweep and the
+fused pass keep the plain version's rounding (no FMA contraction): slots
+and d² are bit-equal, moment planes within 1e-6.
 """
 import numpy as np
 import pytest
@@ -76,3 +78,87 @@ def test_kernel_engine_matches_torch_engine_on_card(cuda_device,
     np.testing.assert_allclose(res_k.T.cpu().numpy(), res_t.T.cpu().numpy(),
                                atol=1e-3)
     np.testing.assert_allclose(res_k.T.cpu().numpy(), T_gt, atol=0.05)
+
+
+# -- slice 2: the grid candidate sweep and the fused moment pass -------------
+
+def _candidate_rows(rng, dev, n, ck, masked=0.3):
+    q = rng.uniform(-40, 40, (n, 3)).astype(np.float32)
+    cand = (q[:, None] + rng.normal(0, 1.0, (n, ck, 3))).astype(np.float32)
+    cand[rng.uniform(size=(n, ck)) < masked] = 1e15
+    cand[::9] = 1e15  # empty neighbourhoods
+    return torch.from_numpy(q).to(dev), torch.from_numpy(cand).to(dev)
+
+
+@pytest.mark.parametrize("n,ck", [(4096, 864), (3000, 50), (17, 3)])
+def test_candidate_sweep_matches_plain_on_card(cuda_device, n, ck):
+    from repro_torch.kernels.nn_search_grid import candidate_sweep_kernel
+    q, cand = _candidate_rows(np.random.default_rng(n), cuda_device, n, ck)
+    before = candidate_sweep_kernel.launches
+    d2_k, slot_k = candidate_sweep_kernel(q, cand)
+    torch.cuda.synchronize()
+    assert candidate_sweep_kernel.launches == before + 1
+    d2_p, slot_p = ref.candidate_sweep(q, cand)
+    # The kernel keeps the plain rounding (no FMA): the same bits.
+    assert torch.equal(slot_k, slot_p)
+    assert torch.equal(d2_k, d2_p)
+
+
+def test_candidate_sweep_first_slot_tie_on_card(cuda_device):
+    from repro_torch.kernels.nn_search_grid import candidate_sweep_kernel
+    rng = np.random.default_rng(3)
+    base = rng.uniform(-3, 3, (40, 3)).astype(np.float32)
+    cand = torch.from_numpy(np.concatenate([base] * 4)[None].repeat(
+        40, 0)).to(cuda_device)                       # (40, 160, 3)
+    q = torch.from_numpy(base + np.float32(0.01)).to(cuda_device)
+    _, slot = candidate_sweep_kernel(q, cand)
+    np.testing.assert_array_equal(slot.cpu().numpy(), np.arange(40))
+
+
+@pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
+def test_fused_planes_match_plain_on_card(cuda_device, robust):
+    from repro_torch.kernels.fused_icp import (fused_moment_sweep,
+                                               moment_planes)
+    rng = np.random.default_rng(7)
+    q, cand = _candidate_rows(rng, cuda_device, 2 * 1500, 64)
+    q, cand = q.view(2, 1500, 3), cand.view(2, 1500, 64, 3)
+    sv = torch.from_numpy((rng.uniform(size=(2, 1500)) > 0.1).astype(
+        np.float32)).to(cuda_device)
+    kw = dict(gate=1.0, robust_kernel=robust, robust_scale=0.6)
+    before = fused_moment_sweep.launches
+    planes_k = moment_planes(q, cand, sv, **kw)
+    torch.cuda.synchronize()
+    assert fused_moment_sweep.launches == before + 1
+    planes_p = ref.fused_moment_planes(q, cand, sv, **kw)
+    assert planes_k.shape == (2, 18, 1500)
+    torch.testing.assert_close(planes_k, planes_p, rtol=1e-6, atol=1e-6)
+    empty = (cand == 1e15).all(-1).all(-1)             # (2, 1500)
+    assert bool(empty.any())
+    assert bool((planes_k.mT[empty] == 0).all())  # empty hoods weigh 0
+
+
+def test_pyramid_engine_launch_counts_on_card(cuda_device, small_scene):
+    from repro_torch.kernels.fused_icp import fused_moment_sweep
+    from repro_torch.kernels.nn_search_grid import candidate_sweep_kernel
+    src, dst, T_gt = small_scene
+    eng = get_engine("pyramid")
+    params = ICPParams(max_iterations=30)
+    for fused in (False, True):
+        counts = (nn_search_kernel, candidate_sweep_kernel,
+                  fused_moment_sweep)
+        before = [f.launches for f in counts]
+        res = eng.register(src, dst, params._replace(fused=fused))
+        got = [f.launches - b for f, b in zip(counts, before)]
+        iters = int(res.iterations)
+        assert got == [6, 0 if fused else iters, iters if fused else 0]
+        np.testing.assert_allclose(res.T.cpu().numpy(), T_gt, atol=0.05)
+
+
+def test_fused_cuda_engine_matches_unfused_on_card(cuda_device, small_scene):
+    src, dst, _ = small_scene
+    params = ICPParams(max_iterations=30)
+    eng = get_engine("cuda")
+    ru = eng.register(src, dst, params)
+    rf = eng.register(src, dst, params._replace(fused=True))
+    np.testing.assert_allclose(rf.T.cpu().numpy(), ru.T.cpu().numpy(),
+                               atol=1e-3)

@@ -180,7 +180,8 @@ def test_engine_registry():
     assert get_engine("torch", device="cpu") is get_engine("torch",
                                                            device="cpu")
     assert isinstance(get_engine("cuda", device="cpu"), KernelEngine)
-    for name in ("pyramid", "distributed", "slots", "sharded-slots"):
+    assert get_engine("pyramid", device="cpu").name == "pyramid"
+    for name in ("distributed", "slots", "sharded-slots"):
         with pytest.raises(NotImplementedError, match="slice"):
             get_engine(name, device="cpu")
     with pytest.raises(ValueError):
@@ -240,6 +241,7 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys\n"
             "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
             "import repro_torch.kernels.build, repro_torch.core.baseline\n"
+            "import repro_torch.kernels.fused_icp, repro_torch.core.pyramid\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -177,7 +177,8 @@ def test_params_from_reference():
 
 
 @pytest.mark.parametrize("params", [
-    ICPParams(minimizer="point_to_plane"), ICPParams(fused=True)])
+    ICPParams(minimizer="point_to_plane"),
+    ICPParams(fused=True, minimizer="point_to_plane")])
 def test_later_slices_raise_not_implemented(params):
     pts = torch.zeros(8, 3)
     with pytest.raises(NotImplementedError, match="slice 3"):
