@@ -43,9 +43,35 @@ that fails raises. Phases:
      scene, each held to the k-d tree and T_gt with phase 2's bands and to
      exact launch counts; device kernels and busy time of one polish
      iteration; one iteration of the brute, grid and fused chains.
+  6. Slice-3 kernels vs plain on the card: ``moment_sweep`` (normals)
+     against ``ref.normal_moments`` with the queries = the target cloud,
+     radius 1 m over a (128, 128, 32), 1 m, K=32 grid: the seq-0 frame-0
+     target (B=1), the 8 bucket-padded seq-0 targets (B=8), the 4x scene, a
+     ragged M=20001, a duplicated-point target and queries 500 m outside
+     (all ten sums exactly 0). The sums must be the same bits (the plain
+     version adds in the kernel's lane order) and within 1e-5 of their
+     magnitude; two kernel runs the same bits; normals from the two within
+     1e-4 where valid in both, with the validity masks' disagreements
+     counted. The 45-plane fused pass (``moment_planes`` with candidate
+     normals = knn normals of the seq-0 targets) against
+     ``ref.fused_moment_planes`` at B=1 and B=8 (4096 x 864) and on empty
+     neighbourhoods, under none, huber 0.3 and tukey 0.8: planes the same
+     bits, the 45 sums within 2e-5, and ``prune=True`` the same bits as
+     ``prune=False``. Kernel (with and without prune), plain and bound
+     times.
+  7. Point-to-plane paths at the Table-I protocol on seq 0 frame 0:
+     ``FppsICP(engine="cuda")`` and ``FppsICP(engine="pyramid")`` with
+     ``setMinimizer("point_to_plane")``, both engines fused, one ``icp`` run
+     whose target normals come from ``estimate_normals_radius`` (the
+     moment-sweep kernel), and ``register_pairs`` on the 8 seq-0 pairs
+     through ``"cuda"``, unfused and fused. Each is held to T_gt (0.05) and
+     its true-NN RMSE to the k-d tree's (0.01 m), with exact launch counts;
+     device kernels and busy time per iteration of the batch; the knn
+     normals' cost at B=8. Each plane run is logged beside the
+     point-to-point run of the same path (phases 2, 3 and 5).
 
-Every kernel count is set to 0 just before each main-path run (phases 2, 3
-and 5) and read just after. The last lines are the ``{"kernels": [...]}``
+Every kernel count is set to 0 just before each main-path run (phases 2, 3,
+5 and 7) and read just after. The last lines are the ``{"kernels": [...]}``
 report, the card line from ``nvidia-smi`` and ``{"ok": true, "device":
 {...}}``.
 """
@@ -631,9 +657,11 @@ def counted(torch, fn):
     from repro_torch.kernels.fused_icp import fused_moment_sweep
     from repro_torch.kernels.nn_search import nn_search_kernel
     from repro_torch.kernels.nn_search_grid import candidate_sweep_kernel
+    from repro_torch.kernels.normals import moment_sweep
     counters = dict(nn_search=nn_search_kernel,
                     candidate_sweep=candidate_sweep_kernel,
-                    fused_moment_sweep=fused_moment_sweep)
+                    fused_moment_sweep=fused_moment_sweep,
+                    moment_sweep=moment_sweep)
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
@@ -699,9 +727,10 @@ def phase5(torch, np, scenes):
     src, dst, T_gt = scenes["seq0"][0]
     base = kdtree_icp(src, dst, 50, 1.0, 1e-5)
     out, totals = {}, dict(nn_search=0, candidate_sweep=0,
-                           fused_moment_sweep=0)
+                           fused_moment_sweep=0, moment_sweep=0)
 
     def record(name, launches, expect, wall_ms, iters, frames, extra):
+        expect = dict(expect, moment_sweep=0)
         check(launches == expect, f"{name}: launches {launches}, expected "
               f"{expect}")
         for k, v in launches.items():
@@ -850,6 +879,392 @@ def phase5(torch, np, scenes):
     return out
 
 
+# Slice 3: the normals moment sweep and the 45-plane fused pass with its
+# bf16 prune.
+MOMENT_RTOL = 1e-5          # the ten sums, relative to their magnitude
+NORMAL_ATOL = 1e-4          # normals valid in both (tests/test_normals.py)
+MOMENT_FLOPS_PER_SLOT = 9   # d and d² and the gate on every slot
+MOMENT_FLOPS_PER_HIT = 19   # 9 products and 10 sums on an in-radius slot
+FUSED_PLANE_EPILOGUE_FLOPS = 160   # per query: residual, a, 45 planes
+
+
+def bits_equal(torch, a, b):
+    """The same shape and the same bits (-0 and +0 differ)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def bytes_bound(nbytes, flops):
+    """(ms, "bytes" | "operations") of the least time for ``nbytes`` moved
+    and ``flops`` fp32 operations."""
+    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes")
+
+
+def phase6(torch, np, scenes):
+    """The normals moment sweep and the 45-plane fused pass (with and
+    without prune) vs their plain versions on the card."""
+    from repro_torch.core.nn_search_grid import (DEFAULT_GRID_DIMS,
+                                                 gather_candidate_points,
+                                                 grid_order)
+    from repro_torch.core.transform import transform_points
+    from repro_torch.data.collate import collate_pairs
+    from repro_torch.data.normals import (NormalParams, estimate_normals,
+                                          moments_to_normals, orient_normals,
+                                          split_moments)
+    from repro_torch.data.voxelize import build_voxel_grid
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_icp import P2PLANE_MOMENTS, moment_planes
+    from repro_torch.kernels.normals import moment_sweep
+
+    dev = torch.device("cuda")
+    radius = NormalParams(neighborhood="radius")   # 1 m, 1 m voxels, K=32
+
+    def tensor(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    def normals_of(m, q):
+        n, v = moments_to_normals(*split_moments(m))
+        return orient_normals(q, n), v
+
+    pairs = scenes["seq0"]
+    src0, dst0, T0 = pairs[0]
+    base = dst0[:10240]
+    batch = collate_pairs([(s, d) for s, d, _ in pairs])
+    out = dict(moment_sweep=[], fused_plane=[])
+
+    # -- moment sweep: the queries are the target cloud itself -------------
+    def sweep_case(points, valid=None, shift=(0.0, 0.0, 0.0)):
+        pts = tensor(points)
+        v = None if valid is None else tensor(valid, torch.bool)
+        grid = build_voxel_grid(pts, radius.voxel_size, radius.grid_dims,
+                                valid=v)
+        q = pts + tensor(shift)
+        return q, gather_candidate_points(q, grid, radius.max_per_cell)
+
+    cases = {
+        "seq0_b1": lambda: sweep_case(dst0),
+        "seq0_b8": lambda: sweep_case(batch.dst, batch.dst_valid),
+        "scene4x_b1": lambda: sweep_case(scenes["scene4x"][1]),
+        "ragged": lambda: sweep_case(dst0[:20001]),
+        "ties": lambda: sweep_case(np.concatenate([base] * 3)),
+        "outside": lambda: sweep_case(dst0, shift=(500.0, 0.0, 0.0)),
+    }
+    for name, make in cases.items():
+        q, cand = make()
+        rows, ck = q.numel() // 3, cand.shape[-2]
+        m_k = moment_sweep(q, cand, radius.radius)
+        torch.cuda.synchronize()
+        m_k2 = moment_sweep(q, cand, radius.radius)
+        m_p = ref.normal_moments(q, cand, radius.radius)
+        same = bits_equal(torch, m_k, m_p)
+        rel = float(((m_k - m_p).abs() / m_p.abs().amax(
+            dim=tuple(range(m_p.dim() - 1))).clamp_min(1e-30)).max())
+        max_abs = float((m_k - m_p).abs().max())
+        check(bits_equal(torch, m_k, m_k2), f"moment sweep {name}: two "
+              "kernel runs differ")
+        check(same, f"moment sweep {name}: sums differ from the plain "
+              f"version, which mirrors the kernel's lane order (max abs "
+              f"{float((m_k - m_p).abs().max())})")
+        check(rel <= MOMENT_RTOL, f"moment sweep {name}: a sum is off its "
+              f"plain version by {rel} > {MOMENT_RTOL} of its magnitude")
+        n_k, v_k = normals_of(m_k, q)
+        n_p, v_p = normals_of(m_p, q)
+        both = v_k & v_p
+        mask_diff = int((v_k != v_p).sum())
+        n_err = float((n_k - n_p).abs()[both].max()) if bool(both.any()) \
+            else 0.0
+        check(n_err <= NORMAL_ATOL, f"moment sweep {name}: normals off by "
+              f"{n_err} > {NORMAL_ATOL}")
+        if name == "outside":
+            check(bool((m_k == 0).all()), "outside: a non-zero moment")
+        hits = float(m_k[..., 0].sum())
+        kern = device_ms(torch, lambda: moment_sweep(q, cand, radius.radius))
+        plain = device_ms(torch, lambda: ref.normal_moments(
+            q, cand, radius.radius))
+        bound_ms, bound_by = bytes_bound(
+            rows * ck * 12 + rows * 12 + rows * 40,
+            rows * ck * MOMENT_FLOPS_PER_SLOT + hits * MOMENT_FLOPS_PER_HIT)
+        row = dict(case=name, shape=list(q.shape[:-1]) + [ck],
+                   bit_equal=same, max_rel_sum=rel, max_abs_err=max_abs,
+                   normal_max_abs_err=n_err, valid_mask_diff=mask_diff,
+                   valid_frac=float(v_k.float().mean()),
+                   mean_neighbours=hits / rows, ms=kern[0],
+                   ms_spread=kern[1:3], plain_ms=plain[0],
+                   plain_ahead=plain[3], bound_ms=bound_ms,
+                   bound_by=bound_by)
+        out["moment_sweep"].append(row)
+        log(f"phase6 moment_sweep {name}: rows={rows} CK={ck} bit_equal="
+            f"{same} max rel sum {rel:.3g} | normals max|d| {n_err:.3g}, "
+            f"valid-mask disagreements {mask_diff}, valid "
+            f"{row['valid_frac']:.4f}, {hits / rows:.1f} neighbours/row | "
+            f"kernel {fmt_ms(kern)} ms, plain {fmt_ms(plain)} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); {bound_ms / kern[0]:.1%} of "
+            f"bound")
+        del q, cand, m_k, m_k2, m_p
+
+    # -- 45-plane fused pass with knn normals of the seq-0 targets ----------
+    def fused_case(b, shift=(0.0, 0.0, 0.0)):
+        sub = collate_pairs([(s, d) for s, d, _ in pairs[:b]])
+        dst = tensor(sub.dst)
+        dv = tensor(sub.dst_valid, torch.bool)
+        grid = build_voxel_grid(dst, 1.0, DEFAULT_GRID_DIMS, valid=dv)
+        normals, _ = estimate_normals(dst, NormalParams(), valid=dv,
+                                      grid=grid)
+        q = transform_points(tensor(np.stack([T for _, _, T in pairs[:b]])),
+                             tensor(np.stack([s for s, _, _ in pairs[:b]])))
+        q = q + tensor(shift)
+        cand, cand_n = gather_candidate_points(
+            q, grid, GRID_K, payload=grid_order(grid, normals))
+        return q, cand, cand_n
+
+    fcases = (("seq0_b1", 1, (0.0, 0.0, 0.0)), ("seq0_b8", 8, (0.0, 0.0, 0.0)),
+              ("outside", 1, (500.0, 0.0, 0.0)))
+    for name, b, shift in fcases:
+        q, cand, cand_n = fused_case(b, shift)
+        rows, ck = q.numel() // 3, cand.shape[-2]
+        sv = torch.ones(q.shape[:-1], dtype=torch.float32, device=dev)
+        results = []
+        for robust, scale in (("none", 0.5), ("huber", 0.3), ("tukey", 0.8)):
+            kw = dict(gate=1.0, robust_kernel=robust, robust_scale=scale)
+            pl_k = moment_planes(q, cand, sv, cand_n, **kw)
+            pl_kp = moment_planes(q, cand, sv, cand_n, prune=True, **kw)
+            torch.cuda.synchronize()
+            pl_p = ref.fused_moment_planes(q, cand, sv, cand_n, **kw)
+            pl_pp = ref.fused_moment_planes(q, cand, sv, cand_n, prune=True,
+                                            **kw)
+            same = bits_equal(torch, pl_k, pl_p)
+            prune_same = (bits_equal(torch, pl_kp, pl_k)
+                          and bits_equal(torch, pl_pp, pl_p))
+            s_k, s_p = pl_k.sum(-1), pl_p.sum(-1)
+            sum_rel = float(((s_k - s_p).abs()
+                             / s_p.abs().clamp_min(1e-30)).max())
+            max_abs = float((pl_k - pl_p).abs().max())
+            check(same, f"fused plane {name} {robust}: planes differ from "
+                  f"the plain version (max abs {max_abs})")
+            check(bool(((s_k - s_p).abs()
+                        <= SUM_RTOL * s_p.abs() + SUM_RTOL).all()),
+                  f"fused plane {name} {robust}: a sum is off by more than "
+                  f"{SUM_RTOL} relative")
+            check(prune_same, f"fused plane {name} {robust}: prune changed "
+                  "the planes")
+            if name == "outside":
+                check(bool((pl_kp == 0).all()) and bool((pl_k == 0).all()),
+                      "outside: non-zero planes")
+            results.append(dict(
+                robust=robust, bit_equal=same, prune_bit_equal=prune_same,
+                max_abs_plane=max_abs, max_rel_sum=sum_rel,
+                weight_sum=[float(x) for x in
+                            s_k[..., P2PLANE_MOMENTS.index("w")].reshape(-1)]))
+        kern = device_ms(torch, lambda: moment_planes(q, cand, sv, cand_n,
+                                                      gate=1.0))
+        kern_p = device_ms(torch, lambda: moment_planes(
+            q, cand, sv, cand_n, gate=1.0, prune=True))
+        plain = device_ms(torch, lambda: ref.fused_moment_planes(
+            q, cand, sv, cand_n, gate=1.0))
+        bound_ms, bound_by = bytes_bound(
+            rows * ck * 12 + rows * (12 + 4 + 12) + rows * 4 * 45,
+            rows * ck * GRID_FLOPS_PER_SLOT
+            + rows * FUSED_PLANE_EPILOGUE_FLOPS)
+        row = dict(case=name, shape=list(q.shape[:-1]) + [ck],
+                   robust=results, ms=kern[0], ms_spread=kern[1:3],
+                   prune_ms=kern_p[0], prune_ms_spread=kern_p[1:3],
+                   plain_ms=plain[0], plain_ahead=plain[3],
+                   bound_ms=bound_ms, bound_by=bound_by)
+        out["fused_plane"].append(row)
+        log(f"phase6 fused 45-plane {name}: B={b} N={q.shape[-2]} CK={ck} "
+            f"bit-equal to plain and prune on = off for "
+            f"{[r['robust'] for r in results]} | max rel sum "
+            f"{max(r['max_rel_sum'] for r in results):.3g} | kernel "
+            f"{fmt_ms(kern)} ms, with prune {fmt_ms(kern_p)} ms, plain "
+            f"{fmt_ms(plain)} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{bound_ms / kern[0]:.1%} of bound")
+        del q, cand, cand_n
+    return out
+
+
+def phase7(torch, np, scenes):
+    """The point-to-plane paths at the Table-I protocol on seq 0 frame 0."""
+    from repro_torch.core import FppsICP, ICPParams, get_engine, icp
+    from repro_torch.core.baseline import kdtree_icp
+    from repro_torch.data.collate import collate_pairs
+    from repro_torch.data.normals import default_target_normals
+    from repro_torch.kernels.normals import estimate_normals_radius
+    from repro_torch.kernels.ops import resident_nn_fn
+
+    coarse = 6  # core.pyramid.DEFAULT_LEVELS: one 4 m level, 6 iterations
+    P = ICPParams(max_iterations=50, max_correspondence_distance=1.0,
+                  transformation_epsilon=1e-5, minimizer="point_to_plane")
+    src, dst, T_gt = scenes["seq0"][0]
+    base = kdtree_icp(src, dst, 50, 1.0, 1e-5)
+    dev = torch.device("cuda")
+    out, totals = {}, dict(nn_search=0, candidate_sweep=0,
+                           fused_moment_sweep=0, moment_sweep=0)
+
+    def hold(name, T, s, d, Tg, b):
+        true_rmse = nn_rmse(np, T, s, d)
+        d_true = abs(true_rmse - b.rmse)
+        d_gt = float(np.abs(T - Tg).max())
+        check(np.all(np.isfinite(T)), f"{name}: non-finite transform")
+        check(d_gt <= T_VS_GT, f"{name}: transform off T_gt by {d_gt}")
+        check(d_true <= RMSE_VS_KDTREE, f"{name}: nearest-neighbour rmse "
+              f"{true_rmse} off the k-d tree's {b.rmse} by {d_true}")
+        return dict(nn_rmse=true_rmse, kdtree_rmse=b.rmse, d_nn_rmse=d_true,
+                    max_abs_T_vs_gt=d_gt,
+                    max_abs_T_vs_kdtree=float(np.abs(T - b.T).max()))
+
+    def record(name, fn, expect, frames=1):
+        fn()  # warm-up: first-call allocations, not counted
+        (T, res), wall, launches = counted(torch, fn)
+        expect = dict(dict(nn_search=0, candidate_sweep=0,
+                           fused_moment_sweep=0, moment_sweep=0),
+                      **expect(res))
+        check(launches == expect, f"{name}: launches {launches}, expected "
+              f"{expect}")
+        for k, v in launches.items():
+            totals[k] += v
+        return T, res, wall, launches
+
+    def align(engine):
+        def run():
+            reg = FppsICP(engine=engine)
+            reg.hardwareInitialize()
+            reg.setInputSource(src)
+            reg.setInputTarget(dst)
+            reg.setMaxCorrespondenceDistance(1.0)
+            reg.setMaxIterationCount(50)
+            reg.setTransformationEpsilon(1e-5)
+            reg.setMinimizer("point_to_plane")
+            T = reg.align()
+            return T, reg.last_result
+        return run
+
+    def fused(engine):  # FppsICP has no fused switch: the engine's API
+        def run():
+            res = engine.register(src, dst, P._replace(fused=True))
+            return res.T.cpu().numpy(), res
+        return run
+
+    def radius_run():
+        s = torch.as_tensor(src, device=dev)
+        d = torch.as_tensor(dst, device=dev)
+        normals, _ = estimate_normals_radius(d)
+        res = icp(s, d, P, nn_fn=resident_nn_fn(d), target_normals=normals)
+        return res.T.cpu().numpy(), res
+
+    singles = (
+        ("align_cuda", align("cuda"),
+         lambda r: dict(nn_search=int(r.iterations))),
+        ("cuda_fused", fused(get_engine("cuda")),
+         lambda r: dict(fused_moment_sweep=int(r.iterations))),
+        ("align_pyramid", align("pyramid"),
+         lambda r: dict(nn_search=coarse,
+                        candidate_sweep=int(r.iterations))),
+        ("pyramid_fused", fused(get_engine("pyramid")),
+         lambda r: dict(nn_search=coarse,
+                        fused_moment_sweep=int(r.iterations))),
+        ("radius_normals_icp", radius_run,
+         lambda r: dict(nn_search=int(r.iterations), moment_sweep=1)),
+    )
+    for name, fn, expect in singles:
+        T, res, wall, launches = record(name, fn, expect)
+        it = int(res.iterations)
+        row = dict(launches=launches, iterations=it, wall_ms=wall,
+                   per_frame_ms=wall, converged=bool(res.converged),
+                   **hold(name, T, src, dst, T_gt, base))
+        out[name] = row
+        log(f"phase7 {name}: iterations {it}, launches {launches} | wall "
+            f"{wall:.2f} ms/frame | nn_rmse {row['nn_rmse']:.6f} (k-d tree "
+            f"{base.rmse:.6f}, |d| {row['d_nn_rmse']:.2e}) | max|T-T_gt| "
+            f"{row['max_abs_T_vs_gt']:.2e}, max|T-T_kdtree| "
+            f"{row['max_abs_T_vs_kdtree']:.2e}")
+
+    # register_pairs on the 8 seq-0 pairs through the "cuda" engine.
+    triples = scenes["seq0"]
+    pairs = [(s, d) for s, d, _ in triples]
+    engine = get_engine("cuda")
+    bases = [kdtree_icp(s, d, 50, 1.0, 1e-5) for s, d in pairs]
+    for name, params in (("pairs_b8", P), ("pairs_b8_fused",
+                                           P._replace(fused=True))):
+        def run(params=params):
+            res, _ = engine.register_pairs(pairs, params)
+            return res.T.cpu().numpy(), res
+        key = "fused_moment_sweep" if params.fused else "nn_search"
+        Ts, res, wall, launches = record(
+            name, run, lambda r, key=key: {key: P.max_iterations})
+        bands = [hold(f"{name}[{k}]", Ts[k], s, d, Tg, bases[k])
+                 for k, (s, d, Tg) in enumerate(triples)]
+        p1 = device_profile(torch, lambda: engine.register_pairs(
+            pairs, params._replace(max_iterations=1)))
+        p2 = device_profile(torch, lambda: engine.register_pairs(
+            pairs, params._replace(max_iterations=2)))
+        row = dict(launches=launches, wall_ms=wall,
+                   per_frame_ms=wall / len(pairs),
+                   iterations=[int(x) for x in res.iterations.cpu()],
+                   ms_per_iteration=wall / P.max_iterations,
+                   max_d_nn_rmse=max(x["d_nn_rmse"] for x in bands),
+                   max_abs_T_vs_gt=max(x["max_abs_T_vs_gt"] for x in bands),
+                   device_kernels_per_iter=(
+                       None if p1[0] is None or p2[0] is None
+                       else p2[0] - p1[0]),
+                   host_launches_per_iter=p2[2] - p1[2],
+                   device_busy_ms_per_iter=(
+                       None if p1[1] is None or p2[1] is None
+                       else p2[1] - p1[1]))
+        out[name] = row
+        log(f"phase7 {name}: iterations {row['iterations']}, launches "
+            f"{launches} | wall {wall:.2f} ms = {row['per_frame_ms']:.2f} "
+            f"ms/frame, {row['ms_per_iteration']:.3f} ms/iteration | max "
+            f"|d nn_rmse| {row['max_d_nn_rmse']:.2e}, max|T-T_gt| "
+            f"{row['max_abs_T_vs_gt']:.2e} | per iteration "
+            f"{row['device_kernels_per_iter']} device kernels "
+            f"({row['host_launches_per_iter']} host launch calls), "
+            f"{row['device_busy_ms_per_iter']} ms device-busy (profiler)")
+
+    # The per-frame normals of the plane path (knn, the engines' default)
+    # at the batch's shape: their device kernels and busy time.
+    batch = collate_pairs(pairs)
+    d_b = torch.as_tensor(batch.dst, device=dev)
+    dv_b = torch.as_tensor(batch.dst_valid, device=dev)
+    default_target_normals(d_b, dv_b)  # warm-up
+    k, busy, launches = device_profile(
+        torch, lambda: default_target_normals(d_b, dv_b))
+    wall = time_ms(torch, lambda: default_target_normals(d_b, dv_b),
+                   warmup=1, reps=3)
+    out["knn_normals_b8"] = dict(device_kernels=k, host_launches=launches,
+                                 device_busy_ms=busy, ms=wall)
+    log(f"phase7 knn normals of the 8 targets (B=8, M=32768): {wall:.2f} ms "
+        f"(CUDA events) | " + ("device not measured" if k is None else
+                               f"{k} device kernels ({launches} host launch "
+                               f"calls), {busy:.3f} ms device-busy"))
+    del d_b, dv_b
+    out["launch_totals"] = totals
+    return out
+
+
+def compare_minimizers(report):
+    """Log each point-to-plane run of phase 7 beside the point-to-point run
+    of the same path (phases 2, 3 and 5): iterations and wall ms per
+    frame."""
+    p2, p3, p5, p7 = (report[f"phase{k}"] for k in (2, 3, 5, 7))
+    pairs = (("align_cuda", p2, "FppsICP(engine='cuda').align"),
+             ("cuda_fused", p5["cuda_fused"], "fused 'cuda'"),
+             ("align_pyramid", p5["align_pyramid"], "pyramid align"),
+             ("pyramid_fused", p5["pyramid_fused"], "fused pyramid"),
+             ("pairs_b8", p3["seq0_b8"], "'cuda' register_pairs B=8"),
+             ("pairs_b8_fused", None, "fused 'cuda' register_pairs B=8"))
+    for name, p2p, label in pairs:
+        plane = p7[name]
+        line = (f"phase7 vs point-to-point, {label}: plane iterations "
+                f"{plane['iterations']}, {plane['per_frame_ms']:.2f} ms/frame")
+        if p2p is not None:
+            line += (f" | point-to-point iterations {p2p['iterations']}, "
+                     f"{p2p.get('per_frame_ms', p2p['wall_ms']):.2f} "
+                     f"ms/frame")
+        log(line)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path, default=None,
@@ -910,15 +1325,22 @@ def main(argv=None):
     grid_cases = {r["case"]: r for r in phase4(torch, np, scenes)}
     report["phase4"] = list(grid_cases.values())
     report["phase5"] = phase5(torch, np, scenes)
-    totals = report["phase5"]["launch_totals"]
+    report["phase6"] = phase6(torch, np, scenes)
+    report["phase7"] = phase7(torch, np, scenes)
+    compare_minimizers(report)
+    totals = {k: v + report["phase7"]["launch_totals"][k]
+              for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(
         v.get("launches", 0) for v in report["phase3"].values()) \
         + totals["nn_search"]
     check(launches > 0, "the main path never launched nn_search")
-    for name in ("candidate_sweep", "fused_moment_sweep"):
+    for name in ("candidate_sweep", "fused_moment_sweep", "moment_sweep"):
         check(totals[name] > 0, f"the main path never launched {name}")
     g = grid_cases["seq0_b1"]
+    sweeps = {r["case"]: r for r in report["phase6"]["moment_sweep"]}
+    planes = {r["case"]: r for r in report["phase6"]["fused_plane"]}
+    ms6 = sweeps["seq0_b1"]
     report["kernels"] = [dict(
         name="nn_search", route="cuda",
         source="src/repro_torch/kernels/csrc/nn_search.cu",
@@ -959,7 +1381,32 @@ def main(argv=None):
         bound_ms=g["fused_bound_ms"], bound_by=g["fused_bound_by"],
         library_ms=None, shape=g["shape"],
         max_rel_sum=max(f["max_rel_sum"] for r in grid_cases.values()
-                        for f in r["fused"]))]
+                        for f in r["fused"]),
+        plane_max_abs_err=max(f["max_abs_plane"] for r in planes.values()
+                              for f in r["robust"]),
+        plane_max_rel_sum=max(f["max_rel_sum"] for r in planes.values()
+                              for f in r["robust"]),
+        prune_bit_equal=all(f["prune_bit_equal"] for r in planes.values()
+                            for f in r["robust"]),
+        plane_ms=planes["seq0_b1"]["ms"],
+        plane_prune_ms=planes["seq0_b1"]["prune_ms"],
+        plane_plain_ms=planes["seq0_b1"]["plain_ms"],
+        plane_bound_ms=planes["seq0_b1"]["bound_ms"]), dict(
+        name="moment_sweep", route="cuda",
+        source="src/repro_torch/kernels/csrc/normals.cu",
+        replaces="src/repro/kernels/normals.py:47",
+        replaces_wrapper=("src/repro/kernels/normals.py::"
+                          "moment_sweep_kernel"),
+        launches=totals["moment_sweep"],
+        max_abs_err=max(r["max_abs_err"] for r in sweeps.values()),
+        ms=ms6["ms"], ms_spread=ms6["ms_spread"], plain_ms=ms6["plain_ms"],
+        bound_ms=ms6["bound_ms"], bound_by=ms6["bound_by"],
+        library_ms=None, shape=ms6["shape"],
+        bit_equal=all(r["bit_equal"] for r in sweeps.values()),
+        max_rel_sum=max(r["max_rel_sum"] for r in sweeps.values()),
+        normal_max_abs_err=max(r["normal_max_abs_err"]
+                               for r in sweeps.values()),
+        valid_mask_diff=sum(r["valid_mask_diff"] for r in sweeps.values()))]
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1, default=float))

@@ -1,6 +1,7 @@
 """Core registration stack of the port: transforms, NN search (brute force
-and voxel grid), ICP, the coarse-to-fine pyramid, engines and the Table-I
-API."""
+and voxel grid), ICP (point-to-point and point-to-plane), the coarse-to-fine
+pyramid, engines and the Table-I API. Surface normals live in
+``repro_torch.data.normals``, which imports this package."""
 from repro_torch.core.api import FppsICP
 from repro_torch.core.engine import (CallableEngine, KernelEngine,
                                      RegistrationEngine, TorchEngine,
@@ -12,6 +13,8 @@ from repro_torch.core.icp import (ICPParams, ICPResult, ICPState, icp,
                                   scrub_nonfinite)
 from repro_torch.core.nn_search import nn_search
 from repro_torch.core.nn_search_grid import GridQueryStats
+from repro_torch.core.point_to_plane import (solve_normal_equations,
+                                             solve_point_to_plane)
 from repro_torch.core.pyramid import PyramidEngine, icp_pyramid, polish_stats
 from repro_torch.core.transform import (estimate_rigid_transform,
                                         make_transform, transform_points)
@@ -25,4 +28,5 @@ __all__ = [
     "scrub_nonfinite", "nn_search", "GridQueryStats", "PyramidEngine",
     "icp_pyramid", "polish_stats", "build_voxel_grid", "voxel_downsample",
     "estimate_rigid_transform", "make_transform", "transform_points",
+    "solve_normal_equations", "solve_point_to_plane",
 ]

@@ -84,8 +84,9 @@ class FppsICP:
         self._eps = float(transformationEpsilon)
 
     def setMinimizer(self, minimizer: str) -> None:
-        """'point_to_point' (paper default) or 'point_to_plane' (accepted
-        here, but registration raises until slice 3 ports it)."""
+        """'point_to_point' (paper default) or 'point_to_plane' (PCL's
+        IterativeClosestPointWithNormals analogue: target normals are
+        estimated once per frame)."""
         if minimizer not in MINIMIZERS:
             raise ValueError(f"unknown minimizer {minimizer!r}; "
                              f"expected one of {MINIMIZERS}")

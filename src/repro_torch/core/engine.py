@@ -11,7 +11,8 @@ the ``register`` API:
     frame (``kernels.ops.resident_nn_fn``); with ``ICPParams.fused`` the
     fused moment kernel over a resident voxel grid instead
     (``kernels.fused_icp``). On CPU tensors each kernel wrapper runs its
-    plain version;
+    plain version. For the point-to-plane minimiser every engine estimates
+    the target normals once per frame (``data.normals``);
   * ``"pyramid"`` (``core.pyramid.PyramidEngine``): coarse-to-fine ICP
     whose full-resolution polish runs the grid candidate sweep (or, fused,
     the moment kernel);
@@ -41,7 +42,8 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.icp import (ICPParams, ICPResult, icp, icp_batch,
+from repro_torch.core.icp import (ICPParams, ICPResult,
+                                  _auto_target_normals, icp, icp_batch,
                                   scrub_nonfinite)
 from repro_torch.data.collate import PAD_SENTINEL, bucket_size, collate_pairs
 from repro_torch.device import resolve_device
@@ -174,12 +176,14 @@ class KernelEngine(RegistrationEngine):
     kernel against a resident voxel grid.
 
     As in the reference's ``"pallas"`` engine, both clouds are scrubbed of
-    non-finite rows first. Unfused, the masked target rows then move to the
-    far sentinel and the (…, 8, M') target operand is built before the
-    loop; each iteration augments only the source. Fused, ``core.icp``
-    builds a counting-sort grid over the valid target rows at the
-    pyramid polish's defaults (``kernels.fused_icp.default_fused_fn``) and
-    each iteration is one gather and one fused pass.
+    non-finite rows first; the plane minimiser's target normals come from
+    the scrubbed target and its true valid mask. Unfused, they are
+    estimated here, then the masked target rows move to the far sentinel
+    and the (…, 8, M') target operand is built before the loop; each
+    iteration augments only the source. Fused, ``core.icp`` estimates them
+    and builds a counting-sort grid over the valid target rows at the
+    pyramid polish's defaults (``kernels.fused_icp.default_fused_fn``); each
+    iteration is one gather and one fused pass.
     """
 
     name = "cuda"
@@ -192,14 +196,18 @@ class KernelEngine(RegistrationEngine):
 
     def _prepare(self, src, dst, params, sv, dv):
         """Scrubbed clouds and source mask, and what ``core.icp`` needs for
-        the iteration: ``dict(dst_valid=...)`` fused (it builds the grid),
-        ``dict(nn_fn=...)`` unfused."""
+        the iteration: ``dst_valid`` fused (it builds the grid and estimates
+        the plane minimiser's normals), or unfused ``nn_fn`` and the
+        ``target_normals`` estimated before the target is masked."""
         src, sv = scrub_nonfinite(src, sv)
         dst, dv = scrub_nonfinite(dst, dv)
         if params.fused:
             return src, dst, sv, dict(dst_valid=dv)
+        normals = (_auto_target_normals(dst, dv)
+                   if params.minimizer == "point_to_plane" else None)
         dst = _mask_invalid(dst, dv)
-        return src, dst, sv, dict(nn_fn=resident_nn_fn(dst))
+        return src, dst, sv, dict(nn_fn=resident_nn_fn(dst),
+                                  target_normals=normals)
 
     def _register(self, src, dst, params, T0, sv, dv) -> ICPResult:
         src, dst, sv, search = self._prepare(src, dst, params, sv, dv)

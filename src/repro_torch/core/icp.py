@@ -19,10 +19,13 @@ less than epsilon is frozen: its state no longer changes.
 
 With ``ICPParams.fused`` the iteration body is one fused pass instead
 (``kernels.fused_icp``): ``fused_fn(src_t, src_valid)`` runs search, gate,
-IRLS weight and moment sums, and the step comes from the moments. Only the
-point-to-point minimiser of the paper is ported so far; the point-to-plane
-minimiser raises ``NotImplementedError`` until slice 3 (ROADMAP queue 1,
-item 4).
+IRLS weight and moment sums, and the step comes from the moments.
+
+``minimizer="point_to_plane"`` swaps the Kabsch step for one Gauss-Newton
+step of the point-to-plane error (``core.point_to_plane``), which needs the
+matched target points' normals: passed as ``target_normals``, or estimated
+once per call from the target (``data.normals.default_target_normals``).
+The robust weight then applies to the plane residual.
 """
 from __future__ import annotations
 
@@ -33,11 +36,12 @@ import torch
 
 from repro_torch.core import transform as tf
 from repro_torch.core.nn_search import gather_rows, nn_search
-from repro_torch.core.point_to_plane import ROBUST_KERNELS, robust_weights
+from repro_torch.core.point_to_plane import (ROBUST_KERNELS, robust_weights,
+                                             solve_normal_equations,
+                                             solve_point_to_plane)
 from repro_torch.data.collate import PAD_SENTINEL
 
 MINIMIZERS = ("point_to_point", "point_to_plane")
-_LATER = "slice 3 (ROADMAP queue 1, item 4)"
 
 
 def scrub_nonfinite(points: torch.Tensor | None,
@@ -63,7 +67,7 @@ class ICPParams(NamedTuple):
     transformation_epsilon: float = 1e-5
     chunk: int = 2048  # target-cloud tile size of the plain NN sweep
     score_dtype: str = "fp32"  # "bf16": half-width distance tiles
-    minimizer: str = "point_to_point"  # "point_to_plane": slice 3
+    minimizer: str = "point_to_point"  # | "point_to_plane"
     robust_kernel: str = "none"        # | "huber" | "tukey"
     robust_scale: float = 0.5          # huber delta / tukey cutoff, metres
     fused: bool = False  # single-pass fused iteration (kernels.fused_icp)
@@ -90,21 +94,19 @@ class ICPResult(NamedTuple):
 
 
 # Total weight below this is "no correspondence evidence": the Kabsch
-# covariance is all zeros, so the step freezes instead of solving.
+# covariance (or the Gauss-Newton normal matrix) is all zeros, so the step
+# freezes instead of solving.
 _DEGENERATE_WEIGHT_SUM = 1e-6
 
 
 def _check_params(params: ICPParams) -> None:
-    """Raise for settings the port does not run (yet)."""
+    """Raise for an unknown minimiser or robust kernel."""
     if params.minimizer not in MINIMIZERS:
         raise ValueError(f"unknown minimizer {params.minimizer!r}; "
                          f"expected one of {MINIMIZERS}")
     if params.robust_kernel not in ROBUST_KERNELS:
         raise ValueError(f"unknown robust kernel {params.robust_kernel!r}; "
                          f"expected one of {ROBUST_KERNELS}")
-    if params.minimizer == "point_to_plane":
-        raise NotImplementedError("minimizer='point_to_plane' is not ported "
-                                  f"yet: {_LATER}")
 
 
 def params_from_reference(d: dict) -> ICPParams:
@@ -129,24 +131,37 @@ def _icp_iteration(source: torch.Tensor, state: ICPState, params: ICPParams,
                    correspond_fn: Callable,
                    src_valid: torch.Tensor | None = None) -> ICPState:
     """One ICP step for every lane. ``correspond_fn(src_t) -> (d2,
-    matched)``; ``src_valid`` (..., N) gives padded rows zero weight and
+    matched)``, or ``(d2, matched, normals)`` for the point-to-plane
+    minimiser; ``src_valid`` (..., N) gives padded rows zero weight and
     keeps them out of the inlier fraction's denominator."""
     dtype = source.dtype
     src_t = tf.transform_points(state.T, source)
-    d2, matched = correspond_fn(src_t)
+    out = correspond_fn(src_t)
+    d2, matched = out[0], out[1]
+    normals = out[2] if len(out) == 3 else None
+    plane = params.minimizer == "point_to_plane"
+    if plane and normals is None:
+        raise ValueError("minimizer='point_to_plane' needs matched normals: "
+                         "pass target_normals (or a correspond_fn returning "
+                         "(d2, matched, normals))")
     weights = (d2 <= params.max_correspondence_distance ** 2).to(dtype)
     if src_valid is not None:
         weights = weights * src_valid.to(dtype)
     if params.robust_kernel != "none":
-        weights = weights * robust_weights(torch.sqrt(d2.clamp_min(0.0)),
-                                           params.robust_kernel,
+        # IRLS weight on the residual the active minimiser optimises.
+        residual = ((normals * (src_t - matched)).sum(-1).abs() if plane
+                    else torch.sqrt(d2.clamp_min(0.0)))
+        weights = weights * robust_weights(residual, params.robust_kernel,
                                            params.robust_scale)
     wsum = weights.sum(-1)
-    # Zero-inlier freeze: with no weight the Kabsch step is singular. Take
-    # the identity step instead (the lane then stops), report rmse = inf,
-    # and set the sticky ``degenerate`` flag.
+    # Zero-inlier freeze: with no weight the minimiser's system is singular.
+    # Take the identity step instead (the lane then stops), report rmse =
+    # inf, and set the sticky ``degenerate`` flag.
     degenerate = wsum <= _DEGENERATE_WEIGHT_SUM
-    T_step = tf.estimate_rigid_transform(src_t, matched, weights)
+    if plane:
+        T_step = solve_point_to_plane(src_t, matched, normals, weights)
+    else:
+        T_step = tf.estimate_rigid_transform(src_t, matched, weights)
     eye = torch.eye(4, dtype=dtype, device=source.device)
     T_delta = torch.where(degenerate[..., None, None], eye, T_step)
     err = tf.rmse(tf.transform_points(T_delta, src_t), matched, weights)
@@ -166,17 +181,21 @@ def _fused_icp_iteration(source: torch.Tensor, state: ICPState,
     """One ICP step for every lane through the fused moment pass.
 
     ``fused_fn(src_t, src_valid)`` returns the Σ-moments
-    (``kernels.fused_icp.PointMoments``) with the lanes' leading
-    dimensions; the rest is the O(1) epilogue. Same semantics as
-    :func:`_icp_iteration`: same weights, same degenerate freeze, and the
-    post-step RMSE against the pre-step correspondences, here from the
-    uncentred moments (``rmse_from_moments``).
+    (``kernels.fused_icp.PointMoments``, or ``PlaneMoments`` for the
+    point-to-plane minimiser) with the lanes' leading dimensions; the rest
+    is the O(1) epilogue: Kabsch from the moments, or the 6x6 solve. Same
+    semantics as :func:`_icp_iteration`: same weights, same degenerate
+    freeze, and the post-step RMSE against the pre-step correspondences,
+    here from the uncentred moments (``rmse_from_moments``).
     """
     dtype = source.dtype
     src_t = tf.transform_points(state.T, source)
     m = fused_fn(src_t, src_valid)
     degenerate = m.sw <= _DEGENERATE_WEIGHT_SUM
-    T_step = tf.estimate_from_moments(m.sw, m.sp, m.sq, m.spq).to(dtype)
+    if params.minimizer == "point_to_plane":
+        T_step = solve_normal_equations(m.A, m.b).to(dtype)
+    else:
+        T_step = tf.estimate_from_moments(m.sw, m.sp, m.sq, m.spq).to(dtype)
     eye = torch.eye(4, dtype=dtype, device=source.device)
     T_delta = torch.where(degenerate[..., None, None], eye, T_step)
     err = tf.rmse_from_moments(T_delta, m.sw, m.sp, m.sq, m.spq, m.spp,
@@ -192,25 +211,46 @@ def _fused_icp_iteration(source: torch.Tensor, state: ICPState,
                     degenerate=state.degenerate | degenerate)
 
 
+def _auto_target_normals(target: torch.Tensor | None,
+                         dst_valid: torch.Tensor | None) -> torch.Tensor:
+    """Target normals at the default settings, estimated once per call when
+    the plane minimiser runs without ``target_normals``."""
+    if target is None:
+        raise ValueError("minimizer='point_to_plane' needs a target cloud "
+                         "(or explicit target_normals) to estimate normals "
+                         "from")
+    # Imported here: data.normals imports core.nn_search_grid, and so the
+    # core package, at import time.
+    from repro_torch.data.normals import default_target_normals
+    return default_target_normals(target, dst_valid)
+
+
 def _resolve_fused_fn(target: torch.Tensor | None, params: ICPParams,
                       fused_fn: Callable | None,
-                      dst_valid: torch.Tensor | None) -> Callable:
+                      dst_valid: torch.Tensor | None,
+                      target_normals: torch.Tensor | None) -> Callable:
     """The fused iteration: ``fused_fn`` if given, else a resident grid
-    over ``target`` (``kernels.fused_icp.default_fused_fn``)."""
+    over ``target`` (``kernels.fused_icp.default_fused_fn``), with target
+    normals for the plane minimiser."""
     if fused_fn is not None:
         return fused_fn
     if target is None:
         raise ValueError("params.fused needs a target cloud (or an explicit "
                          "fused_fn) to build the resident grid from")
+    if params.minimizer == "point_to_plane" and target_normals is None:
+        target_normals = _auto_target_normals(target, dst_valid)
     # Imported here: kernels.fused_icp imports core.nn_search_grid, and so
     # the core package, at import time.
     from repro_torch.kernels.fused_icp import default_fused_fn
-    return default_fused_fn(target, params, dst_valid=dst_valid)
+    return default_fused_fn(target, params, dst_valid=dst_valid,
+                            target_normals=target_normals)
 
 
 def _default_correspond_fn(target: torch.Tensor, params: ICPParams,
                            nn_fn: Callable | None,
-                           dst_valid: torch.Tensor | None) -> Callable:
+                           dst_valid: torch.Tensor | None,
+                           target_normals: torch.Tensor | None = None
+                           ) -> Callable:
     if nn_fn is None:
         # The plain searcher's exact-d2 epilogue gathers the winners
         # already; ask for them instead of gathering twice.
@@ -225,9 +265,12 @@ def _default_correspond_fn(target: torch.Tensor, params: ICPParams,
 
     def correspond(src_t):
         out = nn_fn(src_t, target)
-        if len(out) == 3:
-            return out[0], out[2]
-        return out[0], gather_rows(target, out[1])
+        matched = out[2] if len(out) == 3 else gather_rows(target, out[1])
+        if target_normals is None:
+            return out[0], matched
+        # The winners' normals by the same index (invalid normals are zero
+        # rows, which the plane solve ignores).
+        return out[0], matched, gather_rows(target_normals, out[1])
 
     return correspond
 
@@ -239,21 +282,25 @@ def _select(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
 
 
 def _run(source, target, params: ICPParams, initial_transform, nn_fn,
-         correspond_fn, src_valid, dst_valid, fused_fn,
+         correspond_fn, src_valid, dst_valid, target_normals, fused_fn,
          stop_early: bool) -> ICPResult:
     _check_params(params)
     source, src_valid = scrub_nonfinite(source, src_valid)
     target, dst_valid = scrub_nonfinite(target, dst_valid)
     if params.fused:
-        fused_fn = _resolve_fused_fn(target, params, fused_fn, dst_valid)
+        fused_fn = _resolve_fused_fn(target, params, fused_fn, dst_valid,
+                                     target_normals)
 
         def step(state):
             return _fused_icp_iteration(source, state, params, fused_fn,
                                         src_valid)
     else:
         if correspond_fn is None:
+            if (params.minimizer == "point_to_plane"
+                    and target_normals is None):
+                target_normals = _auto_target_normals(target, dst_valid)
             correspond_fn = _default_correspond_fn(target, params, nn_fn,
-                                                   dst_valid)
+                                                   dst_valid, target_normals)
 
         def step(state):
             return _icp_iteration(source, state, params, correspond_fn,
@@ -290,6 +337,7 @@ def icp(source: torch.Tensor, target: torch.Tensor | None,
         correspond_fn: Callable | None = None,
         src_valid: torch.Tensor | None = None,
         dst_valid: torch.Tensor | None = None,
+        target_normals: torch.Tensor | None = None,
         fused_fn: Callable | None = None) -> ICPResult:
     """Align ``source`` (..., N, 3) onto ``target`` (..., M, 3).
 
@@ -302,26 +350,31 @@ def icp(source: torch.Tensor, target: torch.Tensor | None,
     (:func:`scrub_nonfinite`). Stops when no lane is active, with one host
     sync per iteration.
 
+    ``target_normals`` (..., M, 3) feeds the point-to-plane minimiser; when
+    it is selected without them they are estimated from the scrubbed
+    target and its true valid mask (``data.normals`` defaults).
+
     With ``params.fused`` every iteration is one fused pass instead:
-    ``fused_fn(src_t, src_valid) -> PointMoments`` replaces the
-    correspondence stage (``nn_fn``/``correspond_fn`` are unused); without
-    one, a resident grid over ``target`` is built
-    (``kernels.fused_icp.default_fused_fn``).
+    ``fused_fn(src_t, src_valid) -> PointMoments`` (``PlaneMoments`` for
+    the plane minimiser) replaces the correspondence stage
+    (``nn_fn``/``correspond_fn`` are unused); without one, a resident grid
+    over ``target`` is built (``kernels.fused_icp.default_fused_fn``).
     """
     return _run(source, target, params, initial_transform, nn_fn,
-                correspond_fn, src_valid, dst_valid, fused_fn,
-                stop_early=True)
+                correspond_fn, src_valid, dst_valid, target_normals,
+                fused_fn, stop_early=True)
 
 
 def icp_fixed_iterations(source, target, params: ICPParams = ICPParams(),
                          initial_transform=None, nn_fn=None,
                          correspond_fn=None, src_valid=None,
-                         dst_valid=None, fused_fn=None) -> ICPResult:
+                         dst_valid=None, target_normals=None,
+                         fused_fn=None) -> ICPResult:
     """:func:`icp` run for exactly ``max_iterations`` steps with the freeze
     mask and no host sync: a fixed schedule, like the reference's scan."""
     return _run(source, target, params, initial_transform, nn_fn,
-                correspond_fn, src_valid, dst_valid, fused_fn,
-                stop_early=False)
+                correspond_fn, src_valid, dst_valid, target_normals,
+                fused_fn, stop_early=False)
 
 
 def icp_batch(sources: torch.Tensor, targets: torch.Tensor,
@@ -330,6 +383,7 @@ def icp_batch(sources: torch.Tensor, targets: torch.Tensor,
               nn_fn: Callable | None = None,
               src_valid: torch.Tensor | None = None,
               dst_valid: torch.Tensor | None = None,
+              target_normals: torch.Tensor | None = None,
               fused_fn: Callable | None = None) -> ICPResult:
     """Register ``sources[k]`` (B, N, 3) onto ``targets[k]`` (B, M, 3).
 
@@ -337,10 +391,13 @@ def icp_batch(sources: torch.Tensor, targets: torch.Tensor,
     freeze keeps each pair's early-convergence result, so it matches a
     per-pair :func:`icp` to float tolerance. ``src_valid`` (B, N) and
     ``dst_valid`` (B, M) come from ``collate_pairs``; ``initial_transforms``
-    is an optional (B, 4, 4) warm start; ``fused_fn`` serves
-    ``params.fused`` for the whole batch. Every result field has a leading
-    batch axis.
+    is an optional (B, 4, 4) warm start; ``target_normals`` an optional
+    (B, M, 3) normal batch (estimated for the whole batch at once when the
+    plane minimiser runs without it); ``fused_fn`` serves ``params.fused``
+    for the whole batch. Every result field has a leading batch axis.
     """
     return icp_fixed_iterations(sources, targets, params, initial_transforms,
                                 nn_fn=nn_fn, src_valid=src_valid,
-                                dst_valid=dst_valid, fused_fn=fused_fn)
+                                dst_valid=dst_valid,
+                                target_normals=target_normals,
+                                fused_fn=fused_fn)

@@ -127,13 +127,31 @@ def _gather(src: torch.Tensor, grid: VoxelGrid, max_per_cell: int,
     return cand_pts, pos, cand_valid, start, kept
 
 
+def grid_order(grid: VoxelGrid, values: torch.Tensor) -> torch.Tensor:
+    """Per-point ``values`` (..., M, C) of the grid's cloud, in original
+    order, put in the grid's sorted order (row ``i`` is point
+    ``grid.point_ids[i]``): the ``payload`` of
+    :func:`gather_candidate_points`."""
+    return _lane_take(values, grid.point_ids, grid.start.dim() - 1)
+
+
 def gather_candidate_points(src: torch.Tensor, grid: VoxelGrid,
-                            max_per_cell: int, rings: int = 1
-                            ) -> torch.Tensor:
+                            max_per_cell: int, rings: int = 1,
+                            payload: torch.Tensor | None = None):
     """The (..., N, C·K, 3) candidate coordinates of
     :func:`gather_candidates` alone, for passes that carry the winner's
-    coordinates and need no target index (the fused moment pass)."""
-    return _gather(src, grid, max_per_cell, rings)[0]
+    coordinates and need no target index (the fused moment pass).
+
+    With ``payload`` (..., M, C) in the grid's sorted order
+    (:func:`grid_order`), also the (..., N, C·K, C) payload rows of the
+    same slots, 0 where masked: ``(cand_pts, cand_payload)``.
+    """
+    cand_pts, pos, cand_valid, _, _ = _gather(src, grid, max_per_cell, rings)
+    if payload is None:
+        return cand_pts
+    cand_payload = _lane_take(payload, pos, grid.start.dim() - 1)
+    cand_payload.masked_fill_(~cand_valid[..., None], 0.0)
+    return cand_pts, cand_payload
 
 
 def gather_candidates(src: torch.Tensor, grid: VoxelGrid, max_per_cell: int,

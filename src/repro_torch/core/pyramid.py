@@ -15,7 +15,9 @@
     (``core.nn_search_grid.grid_nn_fn``), or with
     ``ICPParams.fused`` the fused moment pass (``kernels.fused_icp``).
     With ``grid_voxel >= max_correspondence_distance`` every gate-passing
-    correspondence is found exactly.
+    correspondence is found exactly. For the point-to-plane minimiser the
+    polish estimates knn target normals once per frame over the same grid
+    (``data.normals``); the coarse levels stay point-to-point.
 
 The reference's ``use_kernel`` and ``interpret`` switches have no
 counterpart: the device of the tensors decides between a kernel and its
@@ -33,6 +35,7 @@ import torch
 from repro_torch.core.engine import RegistrationEngine, register_engine
 from repro_torch.core.icp import (ICPParams, ICPResult, icp,
                                   icp_fixed_iterations, scrub_nonfinite)
+from repro_torch.core.nn_search import gather_rows
 from repro_torch.core.nn_search_grid import (DEFAULT_GRID_DIMS,
                                              GridQueryStats, grid_nn_fn,
                                              grid_voxel_size,
@@ -77,7 +80,8 @@ def icp_pyramid(source: torch.Tensor, target: torch.Tensor,
     host sync (the batch path); otherwise it stops when every lane
     converged. Returns the polish stage's :class:`ICPResult`.
     """
-    # Imported here: the kernel module imports the core package.
+    # Imported here: these modules import the core package.
+    from repro_torch.data.normals import NormalParams, estimate_normals
     from repro_torch.kernels.fused_icp import make_fused_fn
 
     n, m = source.shape[-2], target.shape[-2]
@@ -105,20 +109,29 @@ def icp_pyramid(source: torch.Tensor, target: torch.Tensor,
                                    src_valid=sv_l)
         T = res.T
 
-    grid = build_voxel_grid(
-        target, grid_voxel_size(params.max_correspondence_distance,
-                                grid_voxel), grid_dims, valid=dst_valid)
+    gv = grid_voxel_size(params.max_correspondence_distance, grid_voxel)
+    grid = build_voxel_grid(target, gv, grid_dims, valid=dst_valid)
+    normals = None
+    if params.minimizer == "point_to_plane":
+        # One grid serves the search and the normals (knn at the grid's
+        # voxel, lattice, capacity and rings).
+        np_l = NormalParams(voxel_size=gv, grid_dims=tuple(grid_dims),
+                            max_per_cell=max_per_cell, rings=rings)
+        normals, _ = estimate_normals(target, np_l, valid=dst_valid,
+                                      grid=grid)
     runner = icp_fixed_iterations if fixed else icp
     if params.fused:
-        fused_fn = make_fused_fn(grid, params, max_per_cell=max_per_cell,
-                                 rings=rings)
+        fused_fn = make_fused_fn(grid, params, normals,
+                                 max_per_cell=max_per_cell, rings=rings)
         return runner(source, None, params, initial_transform=T,
                       fused_fn=fused_fn, src_valid=src_valid)
     nn_fn = grid_nn_fn(grid, max_per_cell=max_per_cell, rings=rings)
 
     def correspond(src_t):
-        d2, _, matched = nn_fn(src_t)
-        return d2, matched
+        d2, idx, matched = nn_fn(src_t)
+        if normals is None:
+            return d2, matched
+        return d2, matched, gather_rows(normals, idx)
 
     return runner(source, None, params, initial_transform=T,
                   correspond_fn=correspond, src_valid=src_valid)

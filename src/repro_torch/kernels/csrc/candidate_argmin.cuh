@@ -36,6 +36,20 @@ __device__ __forceinline__ float direct_d2(float qx, float qy, float qz,
                    __fmul_rn(dz, dz));
 }
 
+// Butterfly over the warp's per-lane minima: every lane returns the least
+// d², and the lowest slot among equal d². Every lane must call it.
+__device__ __forceinline__ SlotMin warp_min(SlotMin best) {
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float d2 = __shfl_xor_sync(kFullMask, best.d2, offset);
+    const int slot = __shfl_xor_sync(kFullMask, best.slot, offset);
+    if (d2 < best.d2 || (d2 == best.d2 && slot < best.slot)) {
+      best.d2 = d2;
+      best.slot = slot;
+    }
+  }
+  return best;
+}
+
 // Every lane of the warp must call this; all lanes return the result.
 // A lane that sees no slot (CK < 32) carries (+inf, 0); candidate rows are
 // finite (masked slots hold 1e15), so such a lane never wins.
@@ -50,15 +64,7 @@ __device__ __forceinline__ SlotMin warp_argmin(const float* __restrict__ row,
       best.slot = s;
     }
   }
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    const float d2 = __shfl_xor_sync(kFullMask, best.d2, offset);
-    const int slot = __shfl_xor_sync(kFullMask, best.slot, offset);
-    if (d2 < best.d2 || (d2 == best.d2 && slot < best.slot)) {
-      best.d2 = d2;
-      best.slot = slot;
-    }
-  }
-  return best;
+  return warp_min(best);
 }
 
 }  // namespace fpps

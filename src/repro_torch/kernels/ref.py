@@ -11,12 +11,15 @@ with ``src_aug`` rows ``[p', 1, |p'|², 0, 0, 0]`` and ``dst_aug`` rows
 ``[-2q, |q|², 1, 0, 0, 0]``. Every function takes an optional leading batch
 dimension: points (B, N, 3) give operands (B, 8, N).
 
-Candidate sweep (``csrc/nn_search_grid.cu``) and fused moment pass
-(``csrc/fused_icp.cu``) over per-query candidate rows (..., N, CK, 3). Their
-arithmetic is written out one IEEE operation at a time (d² as
-``(dx·dx + dy·dy) + dz·dz``, true divisions by a same-device tensor) in the
-order the kernels use, which compile it without FMA contraction; the
-winner is the lowest slot among equal d².
+Candidate sweep (``csrc/nn_search_grid.cu``), fused moment pass
+(``csrc/fused_icp.cu``) and normals moment sweep (``csrc/normals.cu``) over
+per-query candidate rows (..., N, CK, 3). Their arithmetic is written out one
+IEEE operation at a time (d² as ``(dx·dx + dy·dy) + dz·dz``, true divisions
+by a same-device tensor) in the order the kernels use, which compile it
+without FMA contraction; the winner is the lowest slot among equal d². The
+moment sweep's sums follow the kernel's lanes: lane l adds slots l, l + 32,
+... in turn, then a butterfly over the 32 lanes, so it gives the kernel's
+bits too.
 """
 from __future__ import annotations
 
@@ -128,42 +131,93 @@ def candidate_sweep(q: torch.Tensor, cand: torch.Tensor):
     q (..., N, 3), cand (..., N, CK, 3) fp32 -> ((..., N) fp32 best d²,
     unclamped; (..., N) int32 slot, the lowest among equal d²).
     """
-    d = q[..., None, :] - cand
-    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
-    best_d2, slot = torch.min(d2, dim=-1)  # first index on ties
-    return best_d2, slot.to(torch.int32)
+    best_d2, slot = torch.min(_direct_d2(q[..., None, :] - cand), dim=-1)
+    return best_d2, slot.to(torch.int32)  # first index on ties
+
+
+def _direct_d2(d: torch.Tensor) -> torch.Tensor:
+    """``(dx·dx + dy·dy) + dz·dz`` over the last axis of offsets d."""
+    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
 
 
 ROBUST_CODES = {"none": 0, "huber": 1, "tukey": 2}  # csrc/fused_icp.cu
+# The bf16 prune screen passes candidates within gate·PRUNE_MARGIN. Its
+# distance is within (1 + 2^-8)^5 < 1.0197 of the fp32 d² (five bf16
+# roundings of the fp32 offsets), so a margin whose square exceeds that keeps
+# every within-gate candidate.
+PRUNE_MARGIN = 1.1
+assert PRUNE_MARGIN ** 2 > 1.0197
+
+
+def prune_limit(gate: float) -> float:
+    """The screen's bound on the bf16 d²: (gate · PRUNE_MARGIN)²."""
+    return (float(gate) * PRUNE_MARGIN) ** 2
+
+
+def _screen(d: torch.Tensor, gate: float) -> torch.Tensor:
+    """The bf16 prune screen: True where the candidate may be within the
+    gate. d (..., 3) are the fp32 offsets the exact d² is taken from; they
+    are rounded to bf16 and squared and summed in bf16, then compared with
+    :func:`prune_limit` in fp32, which keeps every within-gate
+    candidate."""
+    b = d.to(torch.bfloat16)
+    d2b = b[..., 0] * b[..., 0] + b[..., 1] * b[..., 1] + b[..., 2] * b[..., 2]
+    limit = torch.tensor(prune_limit(gate), dtype=torch.float32,
+                         device=d.device)
+    return d2b.to(torch.float32) <= limit
 
 
 def fused_moment_planes(q: torch.Tensor, cand: torch.Tensor,
-                        sv: torch.Tensor, *, gate: float,
-                        robust_kernel: str = "none",
-                        robust_scale: float = 0.5) -> torch.Tensor:
-    """Per-query point-to-point moment planes of one fused ICP pass.
+                        sv: torch.Tensor,
+                        cand_normals: torch.Tensor | None = None, *,
+                        gate: float, robust_kernel: str = "none",
+                        robust_scale: float = 0.5,
+                        prune: bool = False) -> torch.Tensor:
+    """Per-query moment planes of one fused ICP pass.
 
-    q (..., N, 3), cand (..., N, CK, 3), sv (..., N) fp32 -> (..., 18, N)
-    fp32 in ``kernels.fused_icp.P2P_MOMENTS`` order: w, w·p (3), w·q (3),
-    w·p⊗q (9, row-major), w·|p|², w·|q|². The winner of the candidate sweep is
-    gated (``d² <= gate²``, d² recomputed from its coordinates), masked by
-    ``sv`` and IRLS-weighted (huber: ``min(1, s / max(r, 1e-12))``; tukey:
-    ``(1 - u²)²`` for ``u = r / max(s, 1e-12) < 1``, with ``r = sqrt(d²)``).
+    q (..., N, 3), cand (..., N, CK, 3), sv (..., N) fp32 -> (..., P, N)
+    fp32 in ``kernels.fused_icp.moment_names(plane)`` order.
+
+    Point-to-point (``cand_normals`` None, P = 18): w, w·p (3), w·q (3),
+    w·p⊗q (9, row-major), w·|p|², w·|q|². The winner of the candidate sweep
+    is gated (``d² <= gate²``, d² recomputed from its coordinates), masked
+    by ``sv`` and IRLS-weighted on r = sqrt(d²) (huber:
+    ``min(1, s / max(r, 1e-12))``; tukey: ``(1 - u²)²`` for
+    ``u = r / max(s, 1e-12) < 1``).
+
+    Point-to-plane (``cand_normals`` (..., N, CK, 3), invalid slots 0; P =
+    45): the winner's normal n is taken from the same slot, the IRLS weight
+    is on |r| with r = n·(p − q), and the planes are w, the 21 of w·a⊗a
+    (upper triangle, row-major), the 6 of w·r·a with a = [p×n; n], then the
+    18-plane block above without its w.
+
+    ``prune`` adds the bf16 screen (:func:`_screen`): screened candidates
+    are left out of the argmin. A candidate within the gate is never
+    screened, so the planes are the same bits with and without it. A row
+    of zero weight writes +0 in every plane.
     """
     if robust_kernel not in ROBUST_CODES:
         raise ValueError(f"unknown robust kernel {robust_kernel!r}")
-    _, slot = candidate_sweep(q, cand)
-    wq = cand.gather(-2, slot.long()[..., None, None].expand(
-        *slot.shape, 1, 3))[..., 0, :]
+    d = q[..., None, :] - cand
+    d2 = _direct_d2(d)
+    if prune:
+        d2 = torch.where(_screen(d, gate), d2, float("inf"))
+    slot = torch.argmin(d2, dim=-1, keepdim=True)  # first index on ties
+    index = slot[..., None].expand(*slot.shape, 3)
+    wq = cand.gather(-2, index)[..., 0, :]
     px, py, pz = q.unbind(-1)
     qx, qy, qz = wq.unbind(-1)
     ex, ey, ez = px - qx, py - qy, pz - qz
-    d2 = ex * ex + ey * ey + ez * ez
+    d2w = ex * ex + ey * ey + ez * ez
     gate2 = torch.tensor(float(gate) ** 2, dtype=torch.float32,
                          device=q.device)
-    w = (d2 <= gate2).to(torch.float32) * sv
+    w = (d2w <= gate2).to(torch.float32) * sv
+    plane = cand_normals is not None
+    if plane:
+        nx, ny, nz = cand_normals.gather(-2, index)[..., 0, :].unbind(-1)
+        r = nx * ex + ny * ey + nz * ez
     if robust_kernel != "none":
-        resid = torch.sqrt(d2.clamp_min(0.0))
+        resid = r.abs() if plane else torch.sqrt(d2w.clamp_min(0.0))
         if robust_kernel == "huber":
             s = torch.tensor(float(robust_scale), dtype=torch.float32,
                              device=q.device)
@@ -174,10 +228,59 @@ def fused_moment_planes(q: torch.Tensor, cand: torch.Tensor,
             u = resid / c
             t = 1.0 - u * u
             w = w * torch.where(u < 1.0, t * t, 0.0)
-    planes = [w, w * px, w * py, w * pz, w * qx, w * qy, w * qz]
+    planes = [w]
+    if plane:
+        a = (py * nz - pz * ny, pz * nx - px * nz, px * ny - py * nx,
+             nx, ny, nz)
+        for k in range(6):
+            for li in range(k, 6):
+                planes.append(w * a[k] * a[li])
+        for k in range(6):
+            planes.append(w * r * a[k])
+    planes += [w * px, w * py, w * pz, w * qx, w * qy, w * qz]
     for pi in (px, py, pz):
         for qi in (qx, qy, qz):
             planes.append(w * pi * qi)
     planes.append(w * (px * px + py * py + pz * pz))
     planes.append(w * (qx * qx + qy * qy + qz * qz))
-    return torch.stack(planes, -2)
+    return torch.where(w[..., None, :] == 0.0, 0.0,
+                       torch.stack(planes, -2))
+
+
+NORMAL_MOMENTS = ("cnt", "sx", "sy", "sz", "sxx", "syy", "szz", "sxy",
+                  "sxz", "syz")  # csrc/normals.cu's output order
+WARP = 32
+
+
+def normal_moments(q: torch.Tensor, cand: torch.Tensor,
+                   radius: float) -> torch.Tensor:
+    """Radius-gated moment sums of query-relative candidate offsets.
+
+    q (..., N, 3), cand (..., N, CK, 3) fp32 -> (..., N, 10) fp32 in
+    ``NORMAL_MOMENTS`` order: Σw, Σw·d (3) and the six unique entries of
+    Σw·d·dᵀ, with d = cand − q and w = [d² <= radius²]. Masked slots at the
+    far sentinel fail the gate, so no mask is needed.
+
+    Summed in ``csrc/normals.cu``'s order: lane l of a warp adds slots l,
+    l + 32, ... in turn (CK is padded to a multiple of 32 with zeros, which
+    leave a sum unchanged), then the 32 lane sums are combined by a
+    butterfly (offsets 16, 8, 4, 2, 1).
+    """
+    d = cand - q[..., None, :]
+    w = (_direct_d2(d) <= torch.tensor(
+        float(radius) ** 2, dtype=torch.float32, device=q.device)).to(
+            torch.float32)
+    wx, wy, wz = w * d[..., 0], w * d[..., 1], w * d[..., 2]
+    dx, dy, dz = d.unbind(-1)
+    terms = torch.stack([w, wx, wy, wz, wx * dx, wy * dy, wz * dz, wx * dy,
+                         wx * dz, wy * dz], -2)            # (..., N, 10, CK)
+    ck = terms.shape[-1]
+    terms = torch.nn.functional.pad(terms, (0, (-ck) % WARP))
+    terms = terms.unflatten(-1, (-1, WARP))                # (..., 10, J, 32)
+    acc = torch.zeros_like(terms[..., 0, :])
+    for j in range(terms.shape[-2]):
+        acc = acc + terms[..., j, :]
+    lanes = torch.arange(WARP, device=q.device)
+    for offset in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ offset]
+    return acc[..., 0]

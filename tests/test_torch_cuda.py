@@ -8,9 +8,11 @@ machine with only PyTorch:
 
 Tolerances: brute-force indices agree except on near-ties (plain scores of
 the two candidates within 1e-3, the fp32 expanded-form noise at <= 60 m),
-scores within 1e-3; exact ties go to the first index. The grid sweep and the
-fused pass keep the plain version's rounding (no FMA contraction): slots
-and d² are bit-equal, moment planes within 1e-6.
+scores within 1e-3; exact ties go to the first index. The grid sweep, the
+fused pass and the normals moment sweep keep the plain version's rounding
+and summation order (no FMA contraction): slots, d², moment planes and
+moment sums are bit-equal, and the fused planes with the bf16 prune are the
+same bits as without.
 """
 import numpy as np
 import pytest
@@ -161,4 +163,89 @@ def test_fused_cuda_engine_matches_unfused_on_card(cuda_device, small_scene):
     ru = eng.register(src, dst, params)
     rf = eng.register(src, dst, params._replace(fused=True))
     np.testing.assert_allclose(rf.T.cpu().numpy(), ru.T.cpu().numpy(),
+                               atol=1e-3)
+
+
+# -- slice 3: the normals moment sweep, the 45-plane pass and the prune ------
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("n,ck", [(4096, 864), (3000, 50), (17, 3)])
+def test_moment_sweep_matches_plain_on_card(cuda_device, n, ck):
+    from repro_torch.kernels.normals import moment_sweep
+    q, cand = _candidate_rows(np.random.default_rng(n + 1), cuda_device, n,
+                              ck)
+    before = moment_sweep.launches
+    m_k = moment_sweep(q, cand, 1.0)
+    torch.cuda.synchronize()
+    assert moment_sweep.launches == before + 1
+    m_p = ref.normal_moments(q, cand, 1.0)
+    assert m_k.shape == (n, 10)
+    assert torch.equal(_bits(m_k), _bits(m_p))  # same order, same bits
+    assert torch.equal(_bits(moment_sweep(q, cand, 1.0)), _bits(m_k))
+    assert bool((m_k[::9] == 0).all())  # empty neighbourhoods
+
+
+@pytest.mark.parametrize("robust", ["none", "huber", "tukey"])
+def test_fused_plane_planes_match_plain_on_card(cuda_device, robust):
+    from repro_torch.kernels.fused_icp import moment_planes
+    rng = np.random.default_rng(11)
+    q, cand = _candidate_rows(rng, cuda_device, 2 * 1500, 64)
+    q, cand = q.view(2, 1500, 3), cand.view(2, 1500, 64, 3)
+    cn = torch.nn.functional.normalize(torch.randn(
+        cand.shape, generator=torch.Generator().manual_seed(0)), dim=-1)
+    cn = torch.where(cand == 1e15, 0.0, cn.to(cuda_device))
+    sv = torch.ones(2, 1500, device=cuda_device)
+    kw = dict(gate=1.0, robust_kernel=robust, robust_scale=0.6)
+    planes_k = moment_planes(q, cand, sv, cn, **kw)
+    torch.cuda.synchronize()
+    planes_p = ref.fused_moment_planes(q, cand, sv, cn, **kw)
+    assert planes_k.shape == (2, 45, 1500)
+    assert torch.equal(_bits(planes_k), _bits(planes_p))
+
+
+@pytest.mark.parametrize("plane", [False, True])
+def test_fused_prune_is_bit_identical_on_card(cuda_device, plane):
+    from repro_torch.kernels.fused_icp import moment_planes
+    rng = np.random.default_rng(12)
+    q = torch.from_numpy(rng.uniform(30, 60, (4096, 3)).astype(
+        np.float32)).to(cuda_device)
+    dirs = torch.nn.functional.normalize(torch.from_numpy(rng.normal(
+        size=(4096, 96, 3)).astype(np.float32)), dim=-1).to(cuda_device)
+    dist = torch.from_numpy(rng.uniform(0.9, 3.0, (4096, 96, 1)).astype(
+        np.float32)).to(cuda_device)
+    cand = q[:, None, :] + dist * dirs  # winners 0.9-1.0 m: near the gate
+    cand[::13] = 1e15
+    cn = torch.where(cand == 1e15, 0.0, dirs) if plane else None
+    sv = torch.ones(4096, device=cuda_device)
+    for robust in ("none", "huber", "tukey"):
+        kw = dict(gate=1.0, robust_kernel=robust, robust_scale=1.2)
+        off = moment_planes(q, cand, sv, cn, **kw)
+        on = moment_planes(q, cand, sv, cn, prune=True, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(on), _bits(off))
+        assert torch.equal(_bits(on), _bits(ref.fused_moment_planes(
+            q, cand, sv, cn, prune=True, **kw)))
+        assert float(off[0].sum()) > 100.0
+
+
+def test_plane_cuda_engine_matches_torch_engine_on_card(cuda_device,
+                                                       small_scene):
+    from repro_torch.kernels.fused_icp import fused_moment_sweep
+    src, dst, T_gt = small_scene
+    params = ICPParams(max_iterations=30, minimizer="point_to_plane")
+    before = nn_search_kernel.launches
+    res_k = get_engine("cuda").register(src, dst, params)
+    assert nn_search_kernel.launches - before == int(res_k.iterations)
+    res_t = get_engine("torch").register(src, dst, params)
+    np.testing.assert_allclose(res_k.T.cpu().numpy(), res_t.T.cpu().numpy(),
+                               atol=1e-3)
+    np.testing.assert_allclose(res_k.T.cpu().numpy(), T_gt, atol=0.05)
+    before = fused_moment_sweep.launches
+    res_f = get_engine("cuda").register(src, dst,
+                                        params._replace(fused=True))
+    assert fused_moment_sweep.launches - before == int(res_f.iterations)
+    np.testing.assert_allclose(res_f.T.cpu().numpy(), res_t.T.cpu().numpy(),
                                atol=1e-3)

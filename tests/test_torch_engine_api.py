@@ -92,9 +92,11 @@ def test_fppsicp_warm_start_and_settings(small_scene):
         reg.setMinimizer("bogus")
     with pytest.raises(ValueError):
         reg.setRobustKernel("bogus")
-    reg.setMinimizer("point_to_plane")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        reg.align()
+    reg.setMinimizer("point_to_plane")  # registers from the warm start
+    T = _align(reg, src, dst, iters=5)
+    rot, trans = rt_diff(T, T_gt)
+    assert rot < 0.01 and trans < 0.05
+    assert reg.hasConverged()
     with pytest.raises(ValueError):
         FppsICP(engine="torch", device="cpu").align()
 

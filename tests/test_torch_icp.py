@@ -172,17 +172,11 @@ def test_params_from_reference():
     assert params_from_reference(ref._asdict()) == ICPParams(
         max_iterations=7, robust_kernel="huber", chunk=512)
     assert params_from_reference(JParams()._asdict()) == ICPParams()
+    plane = JParams(minimizer="point_to_plane", fused=True)
+    assert params_from_reference(plane._asdict()) == ICPParams(
+        minimizer="point_to_plane", fused=True)
     with pytest.raises(ValueError, match="new_knob"):
         params_from_reference({**JParams()._asdict(), "new_knob": 1})
-
-
-@pytest.mark.parametrize("params", [
-    ICPParams(minimizer="point_to_plane"),
-    ICPParams(fused=True, minimizer="point_to_plane")])
-def test_later_slices_raise_not_implemented(params):
-    pts = torch.zeros(8, 3)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        icp(pts, pts, params)
 
 
 def test_unknown_settings_raise():

@@ -176,3 +176,56 @@ def test_register_pairs_fused_matches_unfused():
     assert float((ru.T - rf.T).abs().max()) <= PARITY
     batch = collate_pairs(pairs)
     assert ru.iterations.shape == (len(batch.src_sizes),)
+
+
+def _plane_scene(seed, n=500, m=4000):
+    """A pair on planar structure (ground, two walls): the point-to-plane
+    minimiser's case, with a small rigid offset."""
+    rng = np.random.default_rng(seed)
+    k = m // 3
+    ground = np.column_stack([rng.uniform(-12, 12, (k, 2)),
+                              rng.normal(-1.5, 0.01, k)])
+    wall_x = np.column_stack([rng.normal(8.0, 0.01, k),
+                              rng.uniform(-12, 12, k), rng.uniform(-1.5, 3, k)])
+    wall_y = np.column_stack([rng.uniform(-12, 12, m - 2 * k),
+                              rng.normal(-9.0, 0.01, m - 2 * k),
+                              rng.uniform(-1.5, 3, m - 2 * k)])
+    dst = np.concatenate([ground, wall_x, wall_y]).astype(np.float32)
+    a = rng.uniform(-0.05, 0.05)
+    R = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0],
+                  [0, 0, 1]])
+    t = rng.uniform(-0.3, 0.3, 3)
+    src = (dst[rng.choice(m, n, replace=False)] - t) @ R
+    return src.astype(np.float32), dst
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_plane_pyramid_matches_reference(fused):
+    """The plane polish (knn normals over the resident grid; coarse levels
+    point-to-point), unfused through the grid searcher and fused through
+    the 45-plane pass, against the reference's pyramid."""
+    src, dst = _plane_scene(40)
+    p = PARAMS._replace(minimizer="point_to_plane", fused=fused,
+                        max_iterations=15)
+    rj = j_icp_pyramid(jnp.asarray(src), jnp.asarray(dst), _jparams(p),
+                       interpret=True, **SMALL)
+    rt = result_to_numpy(icp_pyramid(torch.from_numpy(src),
+                                     torch.from_numpy(dst), p, **SMALL))
+    assert_parity(rt.T, rj.T)
+    assert abs(int(rt.iterations) - int(rj.iterations)) <= 1
+    assert bool(rt.converged) == bool(rj.converged)
+
+
+def test_plane_register_pairs_fused_matches_unfused_and_fppsicp():
+    pairs = [_plane_scene(41 + k, n=300, m=2400) for k in range(2)]
+    eng = PyramidEngine(device="cpu", **SMALL)
+    p = PARAMS._replace(minimizer="point_to_plane", max_iterations=12)
+    ru, _ = eng.register_pairs(pairs, p)
+    rf, _ = eng.register_pairs(pairs, p._replace(fused=True))
+    assert float((ru.T - rf.T).abs().max()) <= PARITY
+    reg = FppsICP(engine=eng)
+    reg.setMinimizer("point_to_plane")
+    reg.setInputSource(pairs[0][0])
+    reg.setInputTarget(pairs[0][1])
+    reg.setMaxIterationCount(12)
+    assert_parity(reg.align(), ru.T[0].numpy())
