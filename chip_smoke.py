@@ -8,17 +8,26 @@ that fails raises. Phases:
 
   0. IEEE fp32 matmuls (TF32 off), the card's name and power limit, and the
      build of every kernel under ``src/repro_torch/kernels/csrc`` (one
-     ``nvcc`` per source, in parallel) with ptxas's register report.
-  1. Kernel vs plain on the card: ``nn_search_kernel`` against
-     ``ref.blocked_argmin`` on the same augmented operands, at the main
-     path's shapes (seq-0 frame pair, B=1 and B=8, N=4096, M=32768; a 4x
-     scene at M=131072), a ragged N/M and a duplicated-target tie case.
-     Indices must agree except on near-ties (plain scores of the two
-     candidates within 1e-4), ties must go to the first index exactly,
-     and max |d2 difference| <= 1e-3. Times the kernel, the plain version
-     and one PyTorch call (``matmul`` + ``min``) on the device alone
+     ``nvcc`` per source, in parallel) with ptxas's register and spill
+     report (the log is kept beside each library, so a cached build reports
+     it too), and the opcode mix of the NN kernel's innermost loop (static
+     counts from ``cuobjdump -sass``).
+  1. Kernel vs plain on the card: ``nn_search_kernel`` (register-tiled
+     queries, one compare per group of targets, the target-axis splits
+     merged inside the one kernel) against ``ref.blocked_argmin`` on the
+     same augmented operands, at the main path's shapes (seq-0 frame pair,
+     B=1 and B=8, N=4096, M=32768; a 4x scene at M=131072), a ragged N/M
+     and a duplicated-target tie case. Indices must agree except on
+     near-ties (plain scores of the two candidates within 1e-4), ties must
+     go to the first index exactly, and max |d2 difference| <= 1e-3; on
+     top of these, the kernel must give the plain version's bits: 0 index
+     mismatches and max |d2 difference| 0 in every case (the totals over
+     all cases are printed). Times the kernel, the plain version and
+     one PyTorch call (``matmul`` + ``min``) on the device alone
      (``device_ms``: CUDA events around back-to-back calls queued behind a
-     busy-wait, so the wrappers' host overhead is outside the window).
+     busy-wait, so the wrappers' host overhead is outside the window), and
+     counts the device kernels of one call with the profiler at B=1, B=8
+     and the 4x scene (must be 1).
   2. Table-I path: ``FppsICP(engine="cuda").align()`` on seq 0 frame 0 at
      the paper protocol (4096 sampled source points, full target, <= 50
      iterations, 1.0 m gate, epsilon 1e-5), held to the ground truth and
@@ -90,7 +99,12 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-FLOPS_PER_PAIR = 10  # 5 fp32 FMA per (query, target) pair; rows 5..7 are 0
+# The search's work: 4 fp32 FMA per (query, target) pair (the four-term
+# sum; rows 5..7 are 0) and one add per query (|p'|², as row 4 of the target
+# operand is 1). The first port's bound counted the fifth FMA of every pair;
+# ``bound5_ms`` keeps that figure so that older shares of bound compare.
+FLOPS_PER_PAIR = 8
+FLOPS_PER_PAIR_5FMA = 10
 NEAR_TIE = 1e-4
 D2_TOL = 1e-3
 # Reference bands (tests/test_icp.py::test_parity_with_kdtree_baseline).
@@ -213,12 +227,66 @@ def fmt_ms(t):
     return f"{t[0]:.4f} [{t[1]:.4f}-{t[2]:.4f}]" + ("" if t[3] else " host")
 
 
-def bound(b, n, m):
+def bound(b, n, m, flops_per_pair=FLOPS_PER_PAIR):
     """Least time (ms) of one search over (b, 8, n) x (b, 8, m) operands."""
-    ops_s = b * n * m * FLOPS_PER_PAIR / PEAK_FP32_FLOPS
+    ops_s = b * n * (m * flops_per_pair + 1) / PEAK_FP32_FLOPS
     bytes_s = (b * 8 * (n + m) * 4 + b * n * 8) / PEAK_BYTES_PER_S
     return max(ops_s, bytes_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes")
+
+
+def sass_loop_mix(lib_path, kernel):
+    """Opcode counts (static) of ``kernel``'s innermost loop with the most
+    FFMA+FMUL in the SASS of ``lib_path``: the range from a backward
+    branch's target to the branch, holding no other backward branch. None
+    when ``cuobjdump`` gives nothing to read."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        text = subprocess.run([tool, "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    insns, labels, inside = [], {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        if not inside:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            labels[m.group(1)] = len(insns)
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9]*)(\S*)\s*([^;]*)", line)
+        if m:
+            insns.append((int(m.group(1), 16), m.group(2), m.group(4)))
+    addr_index = {a: i for i, (a, _, _) in enumerate(insns)}
+    loops = []
+    for i, (_, op, args) in enumerate(insns):
+        if op != "BRA":
+            continue
+        t = re.search(r"\.L_x_\d+", args)
+        if t and t.group(0) in labels:
+            target = labels[t.group(0)]
+        else:
+            t = re.match(r"\s*(?:!?U?P\w+\s*,\s*)?(0x[0-9a-f]+)", args)
+            target = addr_index.get(int(t.group(1), 16)) if t else None
+        if target is not None and target <= i:
+            loops.append((target, i))
+    inner = [(a, z) for a, z in loops
+             if not any(a <= a2 and z2 <= z and (a2, z2) != (a, z)
+                        for a2, z2 in loops)]
+    if not inner:
+        return None
+    mixes = [collections.Counter(op for _, op, _ in insns[a:z + 1])
+             for a, z in inner]
+    return max(mixes, key=lambda c: c["FFMA"] + c["FMUL"])
 
 
 def phase1(torch, np, scenes):
@@ -260,7 +328,7 @@ def phase1(torch, np, scenes):
         b = src_aug.shape[0] if src_aug.dim() == 3 else 1
         d2_k, idx_k = nn_search_kernel(src_aug, dst_aug)
         torch.cuda.synchronize()
-        d2_p, idx_p = ref.blocked_argmin(src_aug, dst_aug, TILE_M)
+        d2_p, idx_p = ref.blocked_argmin(src_aug, dst_aug)
         d2_k, idx_k = d2_k[..., :n], idx_k[..., :n]
         d2_p, idx_p = d2_p[..., :n], idx_p[..., :n]
 
@@ -277,6 +345,9 @@ def phase1(torch, np, scenes):
         check(gap < NEAR_TIE, f"{name}: {n_diff} index mismatches, largest "
               f"plain-score gap {gap} >= {NEAR_TIE}")
         check(max_d2 <= D2_TOL, f"{name}: max |d2 diff| {max_d2} > {D2_TOL}")
+        check(n_diff == 0 and max_d2 == 0, f"{name}: {n_diff} index "
+              f"mismatches, max |d2 diff| {max_d2}; the kernel must give "
+              f"the plain version's bits")
         check(bool((idx_k >= 0).all()) and bool((idx_k < m).all()),
               f"{name}: index outside the {m} real targets")
         if name == "ties":  # every copy scores the same: the first wins
@@ -284,23 +355,38 @@ def phase1(torch, np, scenes):
                   "ties: a later copy of a duplicated target won")
         np_, mp_ = src_aug.shape[-1], dst_aug.shape[-1]
         kern = device_ms(torch, lambda: nn_search_kernel(src_aug, dst_aug))
-        plain = device_ms(torch, lambda: ref.blocked_argmin(
-            src_aug, dst_aug, TILE_M))
+        plain = device_ms(torch, lambda: ref.blocked_argmin(src_aug, dst_aug))
         lib = device_ms(torch, lambda: torch.matmul(
             src_aug.mT, dst_aug).min(dim=-1))
         bound_ms, bound_by = bound(b, np_, mp_)
+        bound5_ms = bound(b, np_, mp_, FLOPS_PER_PAIR_5FMA)[0]
         row = dict(case=name, shape=[b, n, m], padded=[b, np_, mp_],
                    idx_mismatch=n_diff, near_tie_gap=gap, max_abs_d2=max_d2,
                    kernel_ms=kern[0], kernel_ms_spread=kern[1:3],
                    plain_ms=plain[0], plain_ahead=plain[3],
-                   library_ms=lib[0], bound_ms=bound_ms, bound_by=bound_by)
+                   library_ms=lib[0], bound_ms=bound_ms, bound_by=bound_by,
+                   bound5_ms=bound5_ms)
         rows.append(row)
         log(f"phase1 {name}: B={b} N={n} M={m} (padded {np_}x{mp_}) "
             f"idx_mismatch={n_diff} (near-tie gap {gap:.3g}) "
             f"max|dd2|={max_d2:.3g} | kernel {fmt_ms(kern)} ms, plain "
             f"{fmt_ms(plain)} ms, matmul+min {fmt_ms(lib)} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}); "
-            f"{bound_ms / kern[0]:.1%} of bound")
+            f"{bound_ms / kern[0]:.1%} of bound ({bound5_ms / kern[0]:.1%} "
+            f"of the 5-FMA bound {bound5_ms:.4f} ms)")
+    log(f"phase1 all cases: {sum(r['idx_mismatch'] for r in rows)} index "
+        f"mismatches, max |d2 - plain| {max(r['max_abs_d2'] for r in rows)} "
+        f"(expected 0 and 0)")
+    by_case = {r["case"]: r for r in rows}
+    for name in ("seq0_b1", "seq0_b8", "scene4x_b1"):
+        src_aug, dst_aug = cases[name][:2]
+        kernels, busy, _ = device_profile(
+            torch, lambda: nn_search_kernel(src_aug, dst_aug))
+        check(kernels == 1, f"{name}: one nn_search_kernel call ran "
+              f"{kernels} device kernels, expected 1")
+        by_case[name]["device_kernels_per_call"] = kernels
+        log(f"phase1 {name}: {kernels} device kernel per nn_search_kernel "
+            f"call (profiler, {busy:.4f} ms busy)")
     return rows
 
 
@@ -1304,6 +1390,17 @@ def main(argv=None):
             if "registers" in line or "spill" in line:
                 log(f"build {name}: {line.strip()}")
     log(f"build: {sorted(logs)} in {build_s:.1f} s")
+    nn_sass = sass_loop_mix(build.library_path("nn_search"),
+                            "nn_search_kernel")
+    if nn_sass is None:
+        log("phase0 nn_search SASS: not available (no cuobjdump output)")
+    else:
+        fma = nn_sass.get("FFMA", 0) + nn_sass.get("FMUL", 0)
+        total = sum(nn_sass.values())
+        log(f"phase0 nn_search SASS, innermost loop with the most FMA-pipe "
+            f"instructions: {total} instructions, {fma} FFMA+FMUL "
+            f"({fma / total:.1%} of issue slots) | " + ", ".join(
+                f"{k} {v}" for k, v in nn_sass.most_common()))
 
     t0 = time.perf_counter()
     world0 = make_world(0)
@@ -1316,7 +1413,8 @@ def main(argv=None):
     log(f"scenes: seq0 targets {[len(d) for _, d, _ in seq0]}, 4x target "
         f"{len(scenes['scene4x'][1])} in {time.perf_counter() - t0:.1f} s")
 
-    report = dict(device=kind, card=card, build_s=build_s)
+    report = dict(device=kind, card=card, build_s=build_s,
+                  nn_search_sass_loop=nn_sass)
     cases = {r["case"]: r for r in phase1(torch, np, scenes)}
     report["phase1"] = list(cases.values())
     report["phase2"] = phase2(torch, np, scenes)
@@ -1351,6 +1449,7 @@ def main(argv=None):
         ms=main_case["kernel_ms"], ms_spread=main_case["kernel_ms_spread"],
         plain_ms=main_case["plain_ms"],
         bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+        bound5_ms=main_case["bound5_ms"],
         library_ms=main_case["library_ms"], shape=main_case["shape"],
         idx_mismatch=sum(r["idx_mismatch"] for r in cases.values()),
         max_abs_d2=max(r["max_abs_d2"] for r in cases.values()),

@@ -65,9 +65,10 @@ def library_path(name: str) -> pathlib.Path:
 def build_all(names=None) -> dict[str, str]:
     """Compile the named sources (default: all) in parallel.
 
-    Returns ``{name: nvcc's output}`` (ptxas's register and spill report),
-    or ``"cached"`` for a library already built from the same sources.
-    Raises ``RuntimeError`` with the compiler's output if any build fails.
+    Returns ``{name: nvcc's output}`` (ptxas's register and spill report;
+    for a library already built from the same sources, the output saved
+    beside it). Raises ``RuntimeError`` with the compiler's output if any
+    build fails.
     """
     names = list(sources()) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -76,7 +77,8 @@ def build_all(names=None) -> dict[str, str]:
     for name in names:
         out = library_path(name)
         if out.exists():
-            logs[name] = "cached"
+            saved = out.with_suffix(".log")
+            logs[name] = saved.read_text() if saved.exists() else "cached"
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
@@ -93,6 +95,7 @@ def build_all(names=None) -> dict[str, str]:
             log, _ = proc.communicate()
         logs[name] = log
         if proc.returncode == 0:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: concurrent builds agree
         else:
             tmp.unlink(missing_ok=True)

@@ -11,7 +11,8 @@ the tensors decides what runs:
 
 ``nn_search_kernel.launches`` counts the kernel's launches (one per call on
 a CUDA tensor, however many frames the batch holds) so a run can show that
-its main path went through the kernel.
+its main path went through the kernel. A call is one device kernel: the
+target-axis splits are merged inside it (``csrc/nn_search.cu``).
 """
 from __future__ import annotations
 
@@ -23,9 +24,15 @@ import torch
 from repro_torch.kernels import build, ref
 
 AUG_ROWS = ref.AUG_ROWS
-BLOCK_N = 128   # queries per block: N must be a multiple (csrc kBlockN)
-TILE_M = 1024   # targets per shared-memory tile: M must be a multiple
-BLOCKS_PER_SM = 8  # grid the kernel aims for when choosing the M split
+BLOCK_N = 512   # queries per block (256 threads x 2): N must be a multiple
+TILE_M = 128    # targets per shared-memory tile: M must be a multiple
+# The M split (``num_splits``), chosen by timing split rules on an H100:
+# about two blocks per SM, so one frame runs in one wave; ranges of at
+# most 16 tiles, so a batch's many blocks balance across the SMs; and at
+# least two tiles, so a range's loads overlap its sweep.
+BLOCKS_PER_SM = 2
+MAX_TILES_PER_SPLIT = 16
+MIN_TILES_PER_SPLIT = 2
 
 _c_void_p = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -63,11 +70,14 @@ def _check(src_aug: torch.Tensor, dst_aug: torch.Tensor) -> None:
 
 
 def num_splits(batch: int, n: int, m: int, sm_count: int) -> int:
-    """Ranges the target axis is split into, so that the grid holds about
-    ``BLOCKS_PER_SM`` blocks per SM even for one small frame."""
-    query_blocks = batch * (n // BLOCK_N)
-    want = -(-BLOCKS_PER_SM * sm_count // query_blocks)
-    return max(1, min(want, m // TILE_M, 65535))
+    """Ranges the target axis is split into: enough for ``BLOCKS_PER_SM``
+    blocks per SM even for one small frame, and for ranges of at most
+    ``MAX_TILES_PER_SPLIT`` tiles; never so many that a range is shorter
+    than ``MIN_TILES_PER_SPLIT`` tiles (one range below that)."""
+    tiles = m // TILE_M
+    fill = -(-BLOCKS_PER_SM * sm_count // (batch * (n // BLOCK_N)))
+    spread = -(-tiles // MAX_TILES_PER_SPLIT)
+    return max(1, min(max(fill, spread), tiles // MIN_TILES_PER_SPLIT, 65535))
 
 
 def nn_search_kernel(src_aug: torch.Tensor, dst_aug: torch.Tensor):
@@ -77,7 +87,8 @@ def nn_search_kernel(src_aug: torch.Tensor, dst_aug: torch.Tensor):
       src_aug: (8, N) or (B, 8, N) float32 from ``ref.augment_source``.
       dst_aug: (8, M) or (B, 8, M) float32 from ``ref.augment_target``. On
         the card N must be a multiple of ``BLOCK_N`` and M of ``TILE_M``
-        (``kernels.ops`` pads), and both must be contiguous.
+        (``kernels.ops`` pads), and both must be contiguous and 16-byte
+        aligned (:func:`check_kernel_shapes`).
 
     Returns:
       ``(best_d2, best_idx)``: (..., N) float32 scores, unclamped, and
@@ -88,7 +99,7 @@ def nn_search_kernel(src_aug: torch.Tensor, dst_aug: torch.Tensor):
         src_aug, dst_aug = src_aug[None], dst_aug[None]
     _check(src_aug, dst_aug)
     if src_aug.device.type == "cpu":
-        d2, idx = ref.blocked_argmin(src_aug, dst_aug, TILE_M)
+        d2, idx = ref.blocked_argmin(src_aug, dst_aug)
     elif src_aug.device.type == "cuda":
         d2, idx = _launch(src_aug, dst_aug)
     else:
@@ -96,7 +107,11 @@ def nn_search_kernel(src_aug: torch.Tensor, dst_aug: torch.Tensor):
     return (d2[0], idx[0]) if unbatched else (d2, idx)
 
 
-def _launch(src_aug: torch.Tensor, dst_aug: torch.Tensor):
+def check_kernel_shapes(src_aug: torch.Tensor, dst_aug: torch.Tensor) -> None:
+    """What the kernel takes beyond :func:`nn_search_kernel`'s contract:
+    (B, 8, N) / (B, 8, M) with N a multiple of ``BLOCK_N``, M of ``TILE_M``,
+    B <= 65535 (the grid's z), both contiguous and 16-byte aligned (the
+    target tiles are bulk copies). Raises ``ValueError`` otherwise."""
     b, _, n = src_aug.shape
     m = dst_aug.shape[2]
     if n % BLOCK_N or m % TILE_M:
@@ -104,8 +119,39 @@ def _launch(src_aug: torch.Tensor, dst_aug: torch.Tensor):
                          f"of {TILE_M}; pad with kernels.ops")
     if not (src_aug.is_contiguous() and dst_aug.is_contiguous()):
         raise ValueError("src_aug and dst_aug must be contiguous")
+    if src_aug.data_ptr() % 16 or dst_aug.data_ptr() % 16:
+        raise ValueError("src_aug and dst_aug must be 16-byte aligned")
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the grid's 65535 limit")
+
+
+_merge_state: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _merge_buffers(dev: torch.device, stream: int, n_keys: int,
+                   n_tickets: int):
+    """The split merge's state, kept per device and stream: ``n_keys``
+    int64 merge keys at all ones and ``n_tickets`` int32 counters at zero.
+
+    The kernel leaves both as it found them, so they are filled once, when
+    first needed (or outgrown), and not on every call (that would be more
+    device kernels). One pair per stream, because two launches that may
+    overlap must not share them."""
+    key = (dev.index, stream)
+    state = _merge_state.get(key)
+    if (state is None or state[0].numel() < n_keys
+            or state[1].numel() < n_tickets):
+        state = _merge_state[key] = (
+            torch.full((max(n_keys, 1 << 15),), -1, dtype=torch.int64,
+                       device=dev),
+            torch.zeros(max(n_tickets, 1024), dtype=torch.int32, device=dev))
+    return state
+
+
+def _launch(src_aug: torch.Tensor, dst_aug: torch.Tensor):
+    check_kernel_shapes(src_aug, dst_aug)
+    b, _, n = src_aug.shape
+    m = dst_aug.shape[2]
     lib = _library()
     dev = src_aug.device
     splits = num_splits(b, n, m,
@@ -113,14 +159,12 @@ def _launch(src_aug: torch.Tensor, dst_aug: torch.Tensor):
                         .multi_processor_count)
     best_d2 = torch.empty((b, n), dtype=torch.float32, device=dev)
     best_idx = torch.empty((b, n), dtype=torch.int32, device=dev)
-    scratch = splits if splits > 1 else 0  # one split writes the outputs
-    part_d2 = torch.empty((b, scratch, n), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((b, scratch, n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        keys, tickets = _merge_buffers(dev, stream, b * n, b * (n // BLOCK_N))
         err = lib.fpps_nn_search(
-            src_aug.data_ptr(), dst_aug.data_ptr(), part_d2.data_ptr(),
-            part_idx.data_ptr(), best_d2.data_ptr(), best_idx.data_ptr(),
+            src_aug.data_ptr(), dst_aug.data_ptr(), keys.data_ptr(),
+            tickets.data_ptr(), best_d2.data_ptr(), best_idx.data_ptr(),
             b, n, m, splits, stream)
     if err != 0:
         raise RuntimeError(f"nn_search kernel launch failed: CUDA error {err}")

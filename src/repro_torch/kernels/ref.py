@@ -79,24 +79,30 @@ def blocked_argmin(src_aug: torch.Tensor, dst_aug: torch.Tensor,
     """The kernel's contract in plain PyTorch, on augmented operands.
 
     (..., 8, N), (..., 8, M) -> ((..., N) fp32 best score, unclamped;
-    (..., N) int32 index). Target blocks of ``bm`` columns are scored with
-    one fp32 matmul each; a running minimum with strict ``<`` across
-    blocks keeps the earliest index on ties.
+    (..., N) int32 index). Row 4 of ``dst_aug`` is 1 in every column
+    (:func:`augment_target`), so the fifth term adds the per-query |p'|²
+    (row 4 of ``src_aug``): the argmin runs over the four-term sums of rows
+    0..3 and |p'|² is added once to the winner's. Target blocks of ``bm``
+    columns are scored with one fp32 matmul each; a running minimum with
+    strict ``<`` across blocks keeps the earliest index on ties. The score
+    has the bits of the five-term minimum; the index differs from the
+    five-term argmin only where two five-term scores are exactly equal and
+    their four-term sums are not (``csrc/nn_search.cu`` does the same).
     """
     check_fp32_matmul(src_aug)
     lead = src_aug.shape[:-2]
     n = src_aug.shape[-1]
-    best_d2 = src_aug.new_full(lead + (n,), float("inf"))
+    best = src_aug.new_full(lead + (n,), float("inf"))
     best_idx = torch.zeros(lead + (n,), dtype=torch.int32,
                            device=src_aug.device)
-    src_t = src_aug.mT
+    src_t = src_aug[..., :4, :].mT
     for base in range(0, dst_aug.shape[-1], bm):
-        scores = src_t @ dst_aug[..., base:base + bm]
+        scores = src_t @ dst_aug[..., :4, base:base + bm]
         lmin, larg = torch.min(scores, dim=-1)
-        upd = lmin < best_d2
-        best_d2 = torch.where(upd, lmin, best_d2)
+        upd = lmin < best
+        best = torch.where(upd, lmin, best)
         best_idx = torch.where(upd, larg.to(torch.int32) + base, best_idx)
-    return best_d2, best_idx
+    return best + src_aug[..., 4, :], best_idx
 
 
 def nn_search_ref(src: torch.Tensor, dst: torch.Tensor,

@@ -6,9 +6,11 @@ machine with only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: brute-force indices agree except on near-ties (plain scores of
-the two candidates within 1e-3, the fp32 expanded-form noise at <= 60 m),
-scores within 1e-3; exact ties go to the first index. The grid sweep, the
+Tolerances: the brute-force kernel gives its plain version's bits on the
+constructed cases (duplicates, equal five-term scores, ragged batches); on
+random clouds indices agree except on near-ties (plain scores of the two
+candidates within 1e-3, the fp32 expanded-form noise at <= 60 m), scores
+within 1e-3; exact ties go to the first index. The grid sweep, the
 fused pass and the normals moment sweep keep the plain version's rounding
 and summation order (no FMA contraction): slots, d², moment planes and
 moment sums are bit-equal, and the fused planes with the bf16 prune are the
@@ -20,7 +22,8 @@ import torch
 
 from repro_torch.core import ICPParams, get_engine
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.nn_search import BLOCK_N, TILE_M, nn_search_kernel
+from repro_torch.kernels.nn_search import (BLOCK_N, TILE_M,
+                                           nn_search_kernel, num_splits)
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +70,107 @@ def test_kernel_ties_go_to_first_index_on_card(cuda_device):
     src = torch.from_numpy(base[::3] + 0.01).to(cuda_device)
     _, idx = ops.nn_search_cuda(src, dst)
     np.testing.assert_array_equal(idx.cpu().numpy(), np.arange(0, 3000, 3))
+
+
+def _same_as_plain(src_aug, dst_aug):
+    """Kernel result, asserted to be the plain version's bits."""
+    d2_k, idx_k = nn_search_kernel(src_aug, dst_aug)
+    torch.cuda.synchronize()
+    d2_p, idx_p = ref.blocked_argmin(src_aug, dst_aug)
+    assert torch.equal(idx_k, idx_p)
+    assert torch.equal(d2_k, d2_p)
+    return d2_k, idx_k
+
+
+@pytest.mark.parametrize("gap", [1, 6, 130, 259, 4100])
+def test_kernel_first_copy_wins_across_groups_tiles_splits(cuda_device, gap):
+    """Each of 512 targets appears twice, ``gap`` columns apart: in one
+    compare group (1), the next group (6), the next tile (130), the next
+    split range (259: 512 queries over 16384 targets split into ranges of
+    at most 256 columns) or a far one (4100). The rest are filler 500 m
+    away. The first copy must win."""
+    assert num_splits(1, BLOCK_N, 16384, 132) * 256 >= 16384
+    rng = np.random.default_rng(gap)
+    m, k = 16384, 512
+    base = rng.uniform(-40, 40, (k, 3)).astype(np.float32)
+    dst = rng.uniform(-40, 40, (m, 3)).astype(np.float32)
+    dst[:, 2] += 500.0
+    first = np.arange(k) * 16
+    dst[first] = base
+    dst[first + gap] = base
+    src = torch.from_numpy(base + np.float32(0.01)).to(cuda_device)
+    dst = torch.from_numpy(dst).to(cuda_device)
+    src_aug = ref.augment_source(src, pad_to=BLOCK_N)[None]
+    dst_aug = ref.augment_target(dst, pad_to=m)[None]
+    _, idx = _same_as_plain(src_aug, dst_aug)
+    np.testing.assert_array_equal(idx[0, :k].cpu().numpy(), first)
+
+
+@pytest.mark.parametrize("gap", [1, 6, 130, 300])
+def test_kernel_equal_final_scores_take_smaller_four_term_sum(cuda_device,
+                                                              gap):
+    """Two columns whose four-term sums differ (1 and 1 - 2^-20) but whose
+    five-term scores round to the same 4097 once |p'|² = 4096 is added. The
+    search runs on the four-term sum, so the later column, whose sum is
+    smaller, wins, in the kernel and its plain version alike, with the
+    five-term score's bits."""
+    n, m = BLOCK_N, 4096
+    src_aug = torch.zeros(1, 8, n, device=cuda_device)
+    src_aug[0, 3] = 1.0
+    src_aug[0, 4] = 4096.0
+    dst_aug = torch.zeros(1, 8, m, device=cuda_device)
+    dst_aug[0, 3] = 100.0
+    dst_aug[0, 4] = 1.0
+    a = 200
+    dst_aug[0, 3, a] = 1.0
+    dst_aug[0, 3, a + gap] = 1.0 - 2.0 ** -20
+    assert float(torch.tensor(4096.0) + (1.0 - 2.0 ** -20)) == 4097.0
+    d2, idx = _same_as_plain(src_aug, dst_aug)
+    assert bool((idx == a + gap).all())
+    assert bool((d2 == 4097.0).all())
+
+
+def test_kernel_batch_of_8_with_ragged_m_on_card(cuda_device):
+    rng = np.random.default_rng(8)
+    src = _uniform(rng, (8, 1000, 3), cuda_device)
+    dst = _uniform(rng, (8, 5001, 3), cuda_device)
+    src_aug = ref.augment_source(src, pad_to=1000 + (-1000) % BLOCK_N)
+    dst_aug = ref.augment_target(dst, pad_to=5001 + (-5001) % TILE_M)
+    _, idx = _same_as_plain(src_aug, dst_aug)
+    assert bool((idx[:, :1000] < 5001).all())
+
+
+@pytest.mark.parametrize("m", [TILE_M, 2 * TILE_M, 40 * TILE_M])
+def test_kernel_one_query_tile_on_card(cuda_device, m):
+    """N = BLOCK_N exactly (one query tile), from one target tile (one
+    split, no merge) to many; two calls give the same bits, so the merge
+    counters are back at zero after each."""
+    rng = np.random.default_rng(m)
+    src_aug = ref.augment_source(_uniform(rng, (1, BLOCK_N, 3), cuda_device))
+    dst_aug = ref.augment_target(_uniform(rng, (1, m, 3), cuda_device))
+    d2, idx = _same_as_plain(src_aug, dst_aug)
+    d2_2, idx_2 = nn_search_kernel(src_aug, dst_aug)
+    assert torch.equal(idx_2, idx) and torch.equal(d2_2, d2)
+
+
+def test_kernel_leaves_merge_state_empty_on_card(cuda_device):
+    """A call that splits the target axis merges through per-query keys and
+    per-tile tickets, and leaves them as it found them (keys all ones,
+    tickets zero), so the next call needs no reset kernel."""
+    from repro_torch.kernels import nn_search as nn_mod
+    rng = np.random.default_rng(21)
+    src_aug = ref.augment_source(_uniform(rng, (2, 2 * BLOCK_N, 3),
+                                          cuda_device))
+    dst_aug = ref.augment_target(_uniform(rng, (2, 64 * TILE_M, 3),
+                                          cuda_device))
+    props = torch.cuda.get_device_properties(cuda_device)
+    assert num_splits(2, 2 * BLOCK_N, 64 * TILE_M,
+                      props.multi_processor_count) > 1
+    for _ in range(3):
+        _same_as_plain(src_aug, dst_aug)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    keys, tickets = nn_mod._merge_state[(cuda_device.index or 0, stream)]
+    assert bool((keys == -1).all()) and bool((tickets == 0).all())
 
 
 def test_kernel_engine_matches_torch_engine_on_card(cuda_device,

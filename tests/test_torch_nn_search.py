@@ -18,8 +18,10 @@ from repro.core.nn_search import nn_search as j_nn_search
 from repro.kernels.ops import nn_search_pallas
 from repro_torch.core.nn_search import nn_search
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.nn_search import (BLOCK_N, TILE_M, nn_search_kernel,
-                                           num_splits)
+from repro_torch.data.collate import DEFAULT_BUCKETS
+from repro_torch.kernels.nn_search import (BLOCK_N, TILE_M,
+                                           check_kernel_shapes,
+                                           nn_search_kernel, num_splits)
 
 
 def _rigid(rng, angle=0.3, shift=2.0):
@@ -220,10 +222,49 @@ def test_wrapper_rejects_bad_operands():
 
 
 def test_num_splits_fills_the_card():
-    """One 4096-point frame gives 32 query blocks: the target axis is split
-    so that the grid reaches ~8 blocks per SM on 132 SMs."""
-    s = num_splits(1, 4096, 32768, 132)
-    assert s == 32 and 32 * s >= 8 * 132 * 0.9
-    assert num_splits(8, 4096, 32768, 132) == 5
-    assert num_splits(1, 4096, 1024, 132) == 1  # never more than the tiles
+    """One 4096-point frame gives 8 query blocks: the target axis is split
+    so that the grid holds ~2 blocks per SM on 132 SMs (one wave). A batch
+    of 8 fills the card by itself and is split into ranges of at most 16
+    tiles; no range is shorter than 2 tiles."""
+    assert num_splits(1, 4096, 32768, 132) == 33    # 264 blocks
+    assert num_splits(8, 4096, 32768, 132) == 16    # 256 tiles / 16
+    assert num_splits(1, 4096, 131072, 132) == 64   # 1024 tiles / 16
+    assert num_splits(1, 3072, 20096, 132) == 44    # 6 query blocks
+    assert num_splits(1, 4096, 2 * TILE_M, 132) == 1
+    assert num_splits(1, 4096, TILE_M, 132) == 1    # never 0
+    for b, n, m in [(1, 4096, 32768), (8, 4096, 32768), (1, 512, 1024)]:
+        s = num_splits(b, n, m, 132)
+        assert m // TILE_M // s >= 2
 
+
+@pytest.mark.parametrize("n,m,ok", [
+    (BLOCK_N, TILE_M, True), (3 * BLOCK_N, 7 * TILE_M, True),
+    (BLOCK_N + 128, TILE_M, False), (BLOCK_N // 2, TILE_M, False),
+    (BLOCK_N, TILE_M + 64, False), (BLOCK_N, TILE_M // 2, False)])
+def test_kernel_shape_checks(n, m, ok):
+    """N must be whole query tiles (``BLOCK_N``) and M whole target tiles
+    (``TILE_M``) before the kernel is called."""
+    src, dst = torch.zeros(2, 8, n), torch.zeros(2, 8, m)
+    if ok:
+        check_kernel_shapes(src, dst)
+    else:
+        with pytest.raises(ValueError, match="multiple"):
+            check_kernel_shapes(src, dst)
+
+
+def test_kernel_layout_checks():
+    """Contiguous and 16-byte aligned: the target tiles are bulk copies."""
+    src, dst = torch.zeros(1, 8, BLOCK_N), torch.zeros(1, 8, TILE_M)
+    with pytest.raises(ValueError, match="contiguous"):
+        check_kernel_shapes(src, torch.zeros(1, 8, 2 * TILE_M)[..., ::2])
+    shifted = torch.zeros(8 * TILE_M + 1)[1:].view(1, 8, TILE_M)
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="aligned"):
+        check_kernel_shapes(src, shifted)
+
+
+def test_engine_buckets_are_whole_target_tiles():
+    """Every collate bucket is a whole number of target tiles, so a bucketed
+    target reaches the kernel without more padding."""
+    assert all(b % TILE_M == 0 for b in DEFAULT_BUCKETS)
+    assert 4096 % BLOCK_N == 0  # the Table-I source sample
