@@ -353,3 +353,37 @@ def test_plane_cuda_engine_matches_torch_engine_on_card(cuda_device,
     assert fused_moment_sweep.launches - before == int(res_f.iterations)
     np.testing.assert_allclose(res_f.T.cpu().numpy(), res_t.T.cpu().numpy(),
                                atol=1e-3)
+
+
+def test_odometry_stream_on_card_matches_cpu(cuda_device):
+    """A 5-frame small-scene stream through ``OdometryPipeline`` on the card
+    (the default pyramid engine: its polish is the candidate-sweep kernel)
+    against the same stream through the port on the CPU: poses within 1e-3,
+    the same tiers; one sweep launch per polish iteration; two card runs
+    the same bits."""
+    from repro_torch.core.odometry import OdometryConfig, OdometryPipeline
+    from repro_torch.data.pointcloud import SceneConfig, sequence_scans
+    from repro_torch.data.submap import SubmapParams
+    from repro_torch.kernels.nn_search_grid import candidate_sweep_kernel
+    scene = SceneConfig(n_ground=800, n_walls=600, n_poles=150,
+                        n_clutter=150, extent=15.0, sensor_range=20.0)
+    cfg = OdometryConfig(scan_budget=1024, submap=SubmapParams(
+        voxel_size=0.75, capacity=4096, dims=(64, 64, 24),
+        evict_radius=20.0))
+    scans = sequence_scans(2, 5, scene)
+    cpu_poses, cpu_diags = OdometryPipeline(cfg, device="cpu").run(scans)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        before = candidate_sweep_kernel.launches
+        poses, diags = OdometryPipeline(cfg, device=cuda_device).run(scans)
+        torch.cuda.synchronize()
+        runs.append((poses, diags, candidate_sweep_kernel.launches - before))
+    (p1, d1, n1), (p2, d2, n2) = runs
+    assert np.array_equal(p1, p2)
+    assert [repr(tuple(d)) for d in d1] == [repr(tuple(d)) for d in d2]
+    assert np.abs(p1 - cpu_poses).max() <= 1e-3
+    tiers = [d.recovery_tier for d in d1]
+    assert tiers == [d.recovery_tier for d in cpu_diags]
+    assert tiers == [0] * 5  # one (primary) registration a frame
+    assert n1 == n2 == sum(d.iterations for d in d1)
