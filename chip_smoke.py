@@ -100,9 +100,30 @@ that fails raises. Phases:
      probe, registration, health and fuse; the fallback at other iteration
      caps and from the reference's frame-9 position; one primary-only
      frame's device kernels and busy time against its own wall time.
+  9. The multi-stream registration service: ``RegistrationService(
+     ServiceConfig(slots=8), device="cuda")`` over a fleet of eight
+     full-size streams (seqs 0-7, default ``SceneConfig``, phase 8's
+     ``OdometryConfig(scan_budget=16384)``; one NN-kernel launch a loop
+     step for all 8 lanes, 16,384 x 24,576). (a) recovery on, 5 frames, a
+     ``crop:0.15`` burst on stream 0's frames 2-3: stream 0 and a clean
+     peer give the bits of standalone ``OdometryPipeline(svc.
+     stream_config)`` replays of their staged frames. (b) recovery off, 8
+     frames: every stream the bits of its standalone replay; the fleet
+     admitted in reverse order (every stream in another slot) and three
+     streams beside five idle lanes give (b)'s bits again; stream 0 within
+     0.05 m of a JAX reference run (constants below) with its verdicts.
+     The NN-kernel calls of a (b) round and of a round with idle lanes and
+     the grid sweeps of stream 0's retry tiers in (a) are held to the plain
+     versions' bits. Recorded: per-round wall ms, frames/s, p50/p99 frame
+     latency, the sequential replays' frames/s and the fleet/sequential
+     ratio, iterations and launches a round, one profiled round's device
+     kernels, busy ms and idle share, and the split of a round into
+     prepare, classify, register, probe+fetch, complete and fuse. Then the
+     launcher, ``repro_torch.launch.registration.main`` in ``serve`` and
+     ``pairwise`` mode.
 
 Every kernel count is set to 0 just before each main-path run (phases 2, 3,
-5, 7 and 8) and read just after. The last lines are the ``{"kernels": [...]}``
+5, 7, 8 and 9) and read just after. The last lines are the ``{"kernels": [...]}``
 report, the card line from ``nvidia-smi`` and ``{"ok": true, "device":
 {...}}``.
 """
@@ -1445,40 +1466,51 @@ ODOM_REF_TIER_D_GT = {"widen": 0.3896859753336823,
 
 
 def record_registrations(torch, timed=False, tag=None):
-    """Wrap ``RegistrationEngine.register`` (every engine of the odometry
-    path) to keep each registration's engine, coarse levels, ``fused``
-    flag, result and ``tag()`` (the frame), and with ``timed`` its ms
-    between two syncs. Returns ``(log, restore)``."""
+    """Wrap ``RegistrationEngine.register`` and ``register_batch`` (every
+    engine of the odometry and service paths) to keep each registration's
+    engine, coarse levels, ``fused`` flag, result and ``tag()`` (the frame
+    or round), and with ``timed`` its ms between two syncs. Returns
+    ``(log, restore)``."""
     from repro_torch.core.engine import RegistrationEngine
-    log, orig = [], RegistrationEngine.register
+    log = []
+    origs = {k: getattr(RegistrationEngine, k)
+             for k in ("register", "register_batch")}
 
-    def register(self, source, target, params=None, *args, **kwargs):
-        if timed:
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = orig(self, source, target, params, *args, **kwargs)
-        if timed:
-            torch.cuda.synchronize()
-        log.append(dict(engine=self.name, levels=getattr(self, "_levels", ()),
-                        fused=params.fused, res=res,
-                        tag=None if tag is None else tag(),
-                        ms=(time.perf_counter() - t0) * 1e3 if timed
-                        else None))
-        return res
+    def wrap(orig):
+        def register(self, source, target, params=None, *args, **kwargs):
+            if timed:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig(self, source, target, params, *args, **kwargs)
+            if timed:
+                torch.cuda.synchronize()
+            log.append(dict(engine=self.name,
+                            levels=getattr(self, "_levels", ()),
+                            fused=params.fused, res=res,
+                            tag=None if tag is None else tag(),
+                            ms=(time.perf_counter() - t0) * 1e3 if timed
+                            else None))
+            return res
+        return register
 
-    RegistrationEngine.register = register
-    return log, lambda: setattr(RegistrationEngine, "register", orig)
+    for k, orig in origs.items():
+        setattr(RegistrationEngine, k, wrap(orig))
+    return log, lambda: [setattr(RegistrationEngine, k, o)
+                         for k, o in origs.items()]
 
 
 def expected_launches(log):
     """Kernel launches the registrations in ``log`` must have made: a
     pyramid runs its fixed coarse iterations through ``nn_search`` and one
     polish launch per iteration (``fused_moment_sweep`` if fused, else
-    ``candidate_sweep``); the ``"cuda"`` engine one launch per iteration."""
+    ``candidate_sweep``); the ``"cuda"`` engine one launch per iteration;
+    the ``"slots"`` engine one per step of its stop-early loop over the
+    lanes, which is its lanes' most iterations (a single-frame call's lane
+    0, the others freezing after one)."""
     out = dict(nn_search=0, candidate_sweep=0, fused_moment_sweep=0,
                moment_sweep=0)
     for r in log:
-        it = int(r["res"].iterations)
+        it = int(r["res"].iterations.max())
         key = "fused_moment_sweep" if r["fused"] else (
             "candidate_sweep" if r["engine"] == "pyramid" else "nn_search")
         out[key] += it
@@ -1487,7 +1519,8 @@ def expected_launches(log):
 
 
 # Where the odometry path calls each kernel's wrapper: (module, name there,
-# kernel). Phase 8 wraps these to keep one frame's operands.
+# kernel). Phases 8 and 9 wrap these to keep one frame's (or round's)
+# operands.
 KERNEL_SITES = (("repro_torch.kernels.ops", "nn_search_kernel", "nn_search"),
                 ("repro_torch.core.nn_search_grid", "candidate_sweep_kernel",
                  "candidate_sweep"),
@@ -1526,7 +1559,8 @@ def capture_operands(torch, regs, want, kernels):
     return captured, lambda: [r() for r in restores]
 
 
-def hold_captured(torch, run, captured, regs):
+def hold_captured(torch, run, captured, regs,
+                  where=f"phase8 {{run}} frame {TIER_FRAME}"):
     """Each captured call against the plain version on the same operands:
     the main path's result and a second launch of the wrapper must both
     give the plain version's bits. Returns one row per call."""
@@ -1541,8 +1575,8 @@ def hold_captured(torch, run, captured, regs):
     for (i, kernel, shapes), c in sorted(captured.items(),
                                          key=lambda kv: kv[0][:2]):
         r = regs[i]
-        label = ("fallback" if r["engine"] == "cuda"
-                 else tiers.get(tuple(r["levels"]), str(r["levels"])))
+        label = {"cuda": "fallback", "slots": "fleet"}.get(
+            r["engine"], tiers.get(tuple(r["levels"]), str(r["levels"])))
         args, kw, main = c["args"], c["kwargs"], c["out"]
         if kernel == "nn_search":
             again = nn_search_kernel(*args)
@@ -1566,30 +1600,32 @@ def hold_captured(torch, run, captured, regs):
             row["mismatch"] = int((main[1] != plain[1]).sum()
                                   + (again[1] != plain[1]).sum())
         rows.append(row)
-        log(f"phase8 {run} frame {TIER_FRAME} {label} {kernel} {shapes}: "
+        at = where.format(run=run)
+        log(f"{at} {label} {kernel} {shapes}: "
             f"main path and relaunch bit-equal to plain {same}, "
             f"{row.get('mismatch', '-')} index/slot mismatches, max |main "
             f"- plain| {row['max_abs_err']}")
-        check(same, f"phase8 {run} {label} {kernel} {shapes}: the kernel "
+        check(same, f"{at} {label} {kernel} {shapes}: the kernel "
               f"differs from its plain version on the main path's operands")
     return rows
 
 
-def hold_to_reference(name, np, poses, diags, row, positions, verdicts):
-    """Check a phase-8 run against a JAX reference run of the same stream:
-    every position within ``ODOM_BAND_M``, and per frame the same (tier,
-    health, quarantined), every frame accepted."""
+def hold_to_reference(name, np, poses, diags, row, positions, verdicts,
+                      phase="phase8"):
+    """Check a phase-8 (or 9) run against a JAX reference run of the same
+    stream: every position within ``ODOM_BAND_M``, and per frame the same
+    (tier, health, quarantined), every frame accepted."""
     d_ref = np.linalg.norm(poses[:, :3, 3].astype(np.float64)
                            - np.asarray(positions), axis=1)
     row["max_d_ref_m"] = float(d_ref.max())
     got = tuple((d.recovery_tier, d.health, d.quarantined) for d in diags)
     check(got == tuple(verdicts) and all(d.accepted for d in diags),
-          f"phase8 {name}: (tier, health, quarantined) per frame {got} "
+          f"{phase} {name}: (tier, health, quarantined) per frame {got} "
           f"differ from the JAX reference's {verdicts}")
-    check(float(d_ref.max()) <= ODOM_BAND_M, f"phase8 {name}: positions off "
+    check(float(d_ref.max()) <= ODOM_BAND_M, f"{phase} {name}: positions off "
           f"the JAX reference by up to {d_ref.max()} m: "
           f"{np.round(d_ref, 4).tolist()}")
-    log(f"phase8 {name}: verdicts as the JAX reference's; max |t - t_ref| "
+    log(f"{phase} {name}: verdicts as the JAX reference's; max |t - t_ref| "
         f"{d_ref.max():.4f} m (band {ODOM_BAND_M})")
 
 
@@ -1928,6 +1964,434 @@ def phase8(torch, np):
     return out
 
 
+# Slice 5: the multi-stream registration service. The fleet is
+# sequence_scans(s, 8) for s = 0..7 (default SceneConfig: distinct worlds,
+# each sequence at its own speed; seq 1 is the 2.5 m/frame highway
+# outlier) through ServiceConfig(slots=8) and phase 8's
+# OdometryConfig(scan_budget=16384); staged at the bucket of the fleet's
+# largest scan.
+FLEET_SLOTS = 8
+FLEET_FRAMES_A = 5          # (a): recovery on, a crop burst on stream 0
+FLEET_FRAMES_B = 8          # (b): recovery off
+FLEET_CROP = (2, 3)         # (a): crop:0.15 on stream 0, these frames
+FLEET_PEER = "seq2"         # (a): the clean peer replayed beside stream 0
+FLEET_CAPTURE_ROUND = 4     # (b): rounds whose NN-kernel operands are held
+FLEET_PROFILE_ROUND = 5     # (b) reversed: the profiled round
+FLEET_STEADY = 3            # medians over rounds 3 and later
+# The JAX reference on stream 0 of run (b), through the reference's "xla"
+# engine (the function of one slot lane): a CPU run of src/repro, about
+# 2 minutes on an 8-core CPU host:
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import repro.core
+#   from repro.core.odometry import OdometryConfig, OdometryPipeline
+#   from repro.data.collate import pad_cloud
+#   from repro.data.pointcloud import sequence_scans
+#   p = OdometryPipeline(OdometryConfig(engine='xla', scan_budget=16384,
+#                                       recovery=False))
+#   for s in sequence_scans(0, 8): p.process(*pad_cloud(s, 49152))
+#   print([x[:3, 3].tolist() for x in p.poses], [(d.recovery_tier,
+#         d.health, d.quarantined, d.iterations) for d in p.diagnostics])"
+# Every frame is OK and accepted, at 0/30/15/7/1/2/3/6 iterations.
+FLEET_REF_POSITIONS = (
+    (0.0, 0.0, 0.0),
+    (0.6667321920394897, 0.008237309753894806, -0.02172265760600567),
+    (1.4952950477600098, 0.013984539546072483, -0.03363744542002678),
+    (2.271655797958374, 0.03660059720277786, -0.03952847048640251),
+    (3.0485291481018066, 0.06239581108093262, -0.04566542059183121),
+    (3.829115867614746, 0.08888494968414307, -0.04704217240214348),
+    (4.608298301696777, 0.11293573677539825, -0.056114885956048965),
+    (5.390973091125488, 0.10896036773920059, -0.05241825059056282))
+FLEET_REF_VERDICTS = ((0, "ok", False),) * FLEET_FRAMES_B
+
+
+def same_stream(np, a, b):
+    """Two runs' ``[(pose, diag), ...]`` of one stream: the same bits."""
+    return len(a) == len(b) and all(
+        np.array_equal(pa, pb) and repr(tuple(da)) == repr(tuple(db))
+        for (pa, da), (pb, db) in zip(a, b))
+
+
+def instrument_service(torch, svc, stages):
+    """Time each stage of ``svc``'s rounds between two syncs, into
+    ``stages[stage][round]`` (ms): prepare, classify, register,
+    probe+fetch, complete (the host cascade) and fuse. Returns the
+    restore."""
+    import repro_torch.serve.registration_service as rs
+
+    def timed(stage, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            per = stages.setdefault(stage, {})
+            per[svc.rounds - 1] = (per.get(svc.rounds - 1, 0.0)
+                                   + (time.perf_counter() - t) * 1e3)
+            return r
+        return run
+    names = dict(_prepare_batch="prepare", out_of_lattice_frac="probe+fetch",
+                 host_result="probe+fetch", _fuse_batch="fuse")
+    origs = {k: getattr(rs, k) for k in names}
+    for k, stage in names.items():
+        setattr(rs, k, timed(stage, origs[k]))
+    svc.engine.register_batch = timed("register", svc.engine.register_batch)
+    for stream in svc._streams.values():
+        stream.pipe.prepare_frame = timed("classify",
+                                          stream.pipe.prepare_frame)
+        stream.pipe.complete_frame = timed("complete",
+                                           stream.pipe.complete_frame)
+
+    def restore():
+        for k, f in origs.items():
+            setattr(rs, k, f)
+        del svc.engine.register_batch
+    return restore
+
+
+def phase9(torch, np):
+    """The multi-stream registration service at full size on the card."""
+    from repro_torch.core.icp import scrub_nonfinite
+    from repro_torch.core.odometry import OdometryConfig, OdometryPipeline
+    from repro_torch.data.collate import bucket_size
+    from repro_torch.data.corruption import apply_faults
+    from repro_torch.data.pointcloud import gt_pose, sequence_scans
+    from repro_torch.data.voxelize import voxel_downsample
+    from repro_torch.kernels.nn_search import nn_search_kernel
+    from repro_torch.launch.registration import main as launcher
+    from repro_torch.serve import RegistrationService, ServiceConfig
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    frames_n = max(FLEET_FRAMES_A, FLEET_FRAMES_B)
+    scans = {f"seq{s}": sequence_scans(s, frames_n)
+             for s in range(FLEET_SLOTS)}
+    sizes = [len(x) for v in scans.values() for x in v]
+    cap = bucket_size(max(sizes))
+    odo = OdometryConfig(scan_budget=ODOM_SCAN_BUDGET)
+    cells = []
+    for sid, stream in scans.items():  # the scan downsample drops no cell
+        for f, scan in enumerate(stream):
+            pts, v = scrub_nonfinite(torch.as_tensor(scan, device=dev))
+            _, sv, dropped = voxel_downsample(pts, odo.scan_voxel,
+                                              max_points=odo.scan_budget,
+                                              valid=v, with_stats=True)
+            cells.append(int(sv.sum()))
+            check(int(dropped) == 0, f"phase9: the downsample of {sid} "
+                  f"frame {f} dropped {int(dropped)} cells")
+    log(f"phase9 fleet: seqs 0-{FLEET_SLOTS - 1} x {frames_n} frames, "
+        f"{min(sizes)}-{max(sizes)} points a scan, staged at "
+        f"scan_capacity {cap}; {min(cells)}-{max(cells)} occupied "
+        f"{odo.scan_voxel} m voxels (budget {odo.scan_budget}, 0 dropped); "
+        f"map capacity {odo.submap.capacity}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    out, totals = {}, dict(nn_search=0, candidate_sweep=0,
+                           fused_moment_sweep=0, moment_sweep=0)
+    kernel_checks = []
+
+    def service(config):
+        return RegistrationService(ServiceConfig(
+            slots=FLEET_SLOTS, scan_capacity=cap, odometry=config),
+            device=dev)
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    def fleet_run(name, config, frames, order, capture=None, split=False,
+                  profile_round=None, setup=None):
+        """One counted run of a fresh service: the streams of ``order``
+        admitted in that order (then ``setup(svc)``), ``frames[sid]``
+        submitted wave by wave, every kernel count set to 0 just before and
+        read just after. ``capture = (want(svc), kernels)`` keeps kernel
+        operands for :func:`hold_captured`."""
+        svc = service(config)
+        for sid in order:
+            svc.admit(sid)
+        if setup is not None:
+            setup(svc)
+        regs, restore = record_registrations(torch, tag=lambda: svc.rounds)
+        want, kernels, at_round = capture or (lambda _svc: False, (), None)
+        captured, uncapture = capture_operands(torch, regs,
+                                               lambda: want(svc), kernels)
+        stages = {}
+        unsplit = (instrument_service(torch, svc, stages) if split
+                   else (lambda: None))
+        outputs = {sid: [] for sid in order}
+        rounds, profile = [], {}
+        n_rounds = len(next(iter(frames.values())))
+
+        def one_round(f):
+            t = time.perf_counter()
+            n0 = nn_search_kernel.launches
+            for sid in order:
+                svc.submit(sid, *frames[sid][f])
+            res = svc.step()
+            t_out = time.perf_counter()
+            svc.sync()
+            t_end = time.perf_counter()
+            for sid, r in res.items():
+                outputs[sid].append(r)
+            rounds.append(dict(
+                round=f, wall_ms=(t_end - t) * 1e3,
+                latency_ms=(t_out - t) * 1e3,
+                nn_launches=nn_search_kernel.launches - n0,
+                iterations=max(d.iterations for _, d in res.values()),
+                tiers=[res[sid][1].recovery_tier for sid in order
+                       if sid in res]))
+
+        def run():
+            for f in range(n_rounds):
+                if f == profile_round:
+                    k, busy, host = device_profile(torch,
+                                                   lambda: one_round(f))
+                    wall = rounds[-1]["wall_ms"]
+                    profile.update(round=f, device_kernels=k,
+                                   device_busy_ms=busy, host_launches=host,
+                                   wall_ms_profiled=wall,
+                                   idle_share=(None if busy is None
+                                               else 1.0 - busy / wall))
+                else:
+                    one_round(f)
+        try:
+            _, wall, launches = counted(torch, run)
+        finally:
+            restore()
+            uncapture()
+            unsplit()
+        expect = expected_launches(regs)
+        check(launches == expect, f"phase9 {name}: launches {launches}, "
+              f"expected {expect}")
+        add(launches)
+        steady = [r for r in rounds if r["round"] >= FLEET_STEADY
+                  and r["round"] != profile_round]
+        lat = sorted(r["latency_ms"] for r in steady
+                     for _ in range(len(order)))
+        round_ms = statistics.median(r["wall_ms"] for r in steady)
+        fps = (len(order) * len(steady)
+               / (sum(r["wall_ms"] for r in steady) / 1e3))
+        row = dict(
+            launches=launches, wall_ms=wall, rounds=rounds,
+            median_round_ms=round_ms, fps=fps,
+            latency_p50_ms=float(np.percentile(lat, 50)),
+            latency_p99_ms=float(np.percentile(lat, 99)),
+            registrations=len(regs),
+            batch_shapes=svc.service_report()["batch_shapes"],
+            service_report=svc.service_report())
+        for sid in order:
+            poses = np.stack([p for p, _ in outputs[sid]])
+            check(np.all(np.isfinite(poses)), f"phase9 {name} {sid}: "
+                  f"non-finite pose")
+        # Saturation of the 24,576-row map, a property of the
+        # configuration (recorded; the replays hold it to the bit).
+        row["dropped_cells"] = {sid: svc._streams[sid].pipe.submap
+                                .dropped_cells for sid in order}
+        if profile:
+            row["profile_round"] = profile
+        if split:
+            split_ms = {stage: statistics.median(
+                per.get(r["round"], 0.0) for r in steady)
+                for stage, per in stages.items()}
+            split_ms["rest"] = statistics.median(
+                r["wall_ms"] - sum(per.get(r["round"], 0.0)
+                                   for per in stages.values())
+                for r in steady)
+            row["split_ms"] = split_ms
+        if captured:
+            row["kernel_checks"] = hold_captured(
+                torch, name, captured, regs,
+                where=f"phase9 {{run}} round {at_round}")
+            kernel_checks.extend(row["kernel_checks"])
+        check(row["batch_shapes"] == 1, f"phase9 {name}: the slot engine "
+              f"ran {row['batch_shapes']} batch shapes, not 1")
+        log(f"phase9 {name}: {len(order)} streams x {n_rounds} rounds, "
+            f"{len(regs)} registrations, launches {launches} | median "
+            f"round (>= {FLEET_STEADY}) {round_ms:.1f} ms, {fps:.2f} "
+            f"frames/s, frame latency p50 {row['latency_p50_ms']:.1f} / "
+            f"p99 {row['latency_p99_ms']:.1f} ms | per round: iterations "
+            f"{[r['iterations'] for r in rounds]}, nn_search launches "
+            f"{[r['nn_launches'] for r in rounds]}, wall ms "
+            f"{[round(r['wall_ms'], 1) for r in rounds]} | submap cells "
+            f"dropped {row['dropped_cells']}")
+        out[name] = row
+        return svc, outputs, row
+
+    def replay(name, config, staged, sids):
+        """Standalone ``OdometryPipeline(config)`` replays of
+        ``staged[sid]``, one pipeline a stream, frame by frame across the
+        streams in a host loop (counted; each call timed between syncs)."""
+        res, frame_ms = {sid: [] for sid in sids}, {sid: [] for sid in sids}
+        regs, restore = record_registrations(torch)
+
+        def run():
+            pipes = {sid: OdometryPipeline(config, device=dev)
+                     for sid in sids}
+            for f in range(len(staged[sids[0]])):
+                for sid in sids:
+                    t = time.perf_counter()
+                    res[sid].append(pipes[sid].process(*staged[sid][f]))
+                    torch.cuda.synchronize()
+                    frame_ms[sid].append((time.perf_counter() - t) * 1e3)
+        try:
+            _, wall, launches = counted(torch, run)
+        finally:
+            restore()
+        check(launches == expected_launches(regs), f"phase9 {name}: "
+              f"launches {launches}, expected {expected_launches(regs)}")
+        add(launches)
+        steady = [ms for sid in sids for ms in frame_ms[sid][FLEET_STEADY:]]
+        row = dict(streams=list(sids), launches=launches, wall_ms=wall,
+                   frame_ms=frame_ms, fps=len(steady) / (sum(steady) / 1e3))
+        return res, row
+
+    def slot_config(config):  # the service's stream_config
+        return config._replace(engine="slots",
+                               engine_kwargs=(("slots", FLEET_SLOTS),))
+
+    # (a) recovery on: a crop burst on stream 0, frames 2-3.
+    frames_a = {sid: [(scan, None) for scan in v[:FLEET_FRAMES_A]]
+                for sid, v in scans.items()}
+    frames_a["seq0"] = [apply_faults(scan, BURST_SPEC, seed=0, frame=f)
+                        if f in FLEET_CROP else (scan, None)
+                        for f, (scan, _) in enumerate(frames_a["seq0"])]
+    in_tier = [False]
+
+    def want_a(svc):  # the retry tiers of stream 0 on the first crop frame
+        return in_tier[0] and svc.rounds - 1 == FLEET_CROP[0]
+
+    def flag_tiers(svc):
+        pipe = svc._streams["seq0"].pipe
+        attempt = pipe._tier_attempt
+
+        def flagged(*a, **kw):
+            in_tier[0] = True
+            try:
+                return attempt(*a, **kw)
+            finally:
+                in_tier[0] = False
+        pipe._tier_attempt = flagged
+
+    order = list(scans)
+    t_a = time.perf_counter()
+    svc_a, out_a, row_a = fleet_run(
+        "a_recovery", odo, frames_a, order,
+        capture=(want_a, ("candidate_sweep",), FLEET_CROP[0]),
+        setup=flag_tiers)
+    log(f"phase9 a_recovery: {time.perf_counter() - t_a:.1f} s, mostly each "
+        f"stream's retry ladder (recovery on; the condition probe reads "
+        f"full-size scans SUSPECT, ROADMAP queue 3)")
+    for sid in order:
+        log(f"phase9 a_recovery {sid}: tiers "
+            f"{[d.recovery_tier for _, d in out_a[sid]]} health "
+            f"{[d.health for _, d in out_a[sid]]} quarantined "
+            f"{[int(d.quarantined) for _, d in out_a[sid]]}")
+    staged_a = {sid: [svc_a.stage_scan(*fr) for fr in frames_a[sid]]
+                for sid in ("seq0", FLEET_PEER)}
+    rep_a, rep_row_a = replay("a_replay", slot_config(odo), staged_a,
+                              list(staged_a))
+    for sid in staged_a:
+        check(same_stream(np, out_a[sid], rep_a[sid]), f"phase9 a: {sid} "
+              f"through the service differs from its standalone replay")
+    row_a["replay"] = rep_row_a
+    check(any(r["kernel"] == "candidate_sweep"
+              for r in row_a.get("kernel_checks", ())),
+          "phase9 a: no retry tier's grid sweep of stream 0 was held")
+    log("phase9 a: seq0 (crop) and its clean peer "
+        f"{FLEET_PEER} bit-identical to standalone replays")
+
+    # (b) recovery off, the reference's service benchmark regime.
+    odo_b = odo._replace(recovery=False)
+    frames_b = {sid: [(scan, None) for scan in v[:FLEET_FRAMES_B]]
+                for sid, v in scans.items()}
+
+    def want_b(svc):
+        return svc.rounds - 1 == FLEET_CAPTURE_ROUND
+
+    _, out_b, row_b = fleet_run(
+        "b_fleet", odo_b, frames_b, order,
+        capture=(want_b, ("nn_search",), FLEET_CAPTURE_ROUND))
+    staged_b = {sid: [svc_a.stage_scan(scan) for scan, _ in v]
+                for sid, v in frames_b.items()}
+    rep_b, rep_row_b = replay("b_replay", slot_config(odo_b), staged_b,
+                              order)
+    for sid in order:
+        check(same_stream(np, out_b[sid], rep_b[sid]), f"phase9 b: {sid} "
+              f"through the service differs from its standalone replay")
+    row_b["replay"] = rep_row_b
+    # The reference's sequential baseline (_run_sequential of
+    # benchmarks/service_throughput.py): each stream alone through the
+    # plain single-pair engine, the "cuda" kernel engine here.
+    seq_b, seq_row_b = replay("b_sequential", odo_b._replace(
+        engine="cuda", engine_kwargs=()), staged_b, order)
+    seq_row_b["max_position_gap_m"] = {sid: float(max(
+        np.abs(p[:3, 3] - q[:3, 3]).max()
+        for (p, _), (q, _) in zip(seq_b[sid], out_b[sid]))) for sid in order}
+    for sid in order:
+        check(all(np.all(np.isfinite(p)) for p, _ in seq_b[sid]),
+              f"phase9 b_sequential {sid}: non-finite pose")
+    row_b["sequential"] = seq_row_b
+    row_b["fps_ratio"] = row_b["fps"] / seq_row_b["fps"]
+    row_b["fps_over_slot_replays"] = row_b["fps"] / rep_row_b["fps"]
+    log(f"phase9 b: every stream bit-identical to its standalone replay "
+        f"(slot engine, {rep_row_b['fps']:.2f} frames/s: fleet/replays "
+        f"{row_b['fps_over_slot_replays']:.2f}x); sequential baseline "
+        f"(one 'cuda'-engine pipeline a stream) {seq_row_b['fps']:.2f} "
+        f"frames/s, fleet {row_b['fps']:.2f} (frames >= {FLEET_STEADY}): "
+        f"fps_ratio {row_b['fps_ratio']:.2f}x; sequential positions within "
+        f"{max(seq_row_b['max_position_gap_m'].values()):.4f} m of the "
+        f"fleet's")
+    poses0 = np.stack([p for p, _ in out_b["seq0"]])
+    hold_to_reference("b_fleet seq0", np, poses0,
+                      [d for _, d in out_b["seq0"]], row_b,
+                      FLEET_REF_POSITIONS, FLEET_REF_VERDICTS, phase="phase9")
+    gt = gt_pose(0)
+    row_b["seq0_err_m"] = np.linalg.norm(
+        poses0[:, :3, 3] - np.stack([gt(f)[:3, 3] for f in range(
+            FLEET_FRAMES_B)]), axis=1).tolist()
+
+    _, out_r, row_r = fleet_run("b_reversed", odo_b, frames_b, order[::-1],
+                                split=True, profile_round=FLEET_PROFILE_ROUND)
+    _, out_3, _ = fleet_run(
+        "b_three", odo_b, frames_b, order[:3],
+        capture=(want_b, ("nn_search",), FLEET_CAPTURE_ROUND))
+    for sid in order:
+        check(same_stream(np, out_r[sid], out_b[sid]), f"phase9 b_reversed: "
+              f"{sid} in another slot gave other bits")
+    for sid in order[:3]:
+        check(same_stream(np, out_3[sid], out_b[sid]), f"phase9 b_three: "
+              f"{sid} beside five idle lanes gave other bits")
+    p = row_r["profile_round"]
+    log("phase9 b: reversed admission (every stream in another slot) and "
+        "three streams beside five idle lanes: the same bits as b_fleet; "
+        "split of a reversed round (median of rounds >= "
+        f"{FLEET_STEADY}, ms, a sync around each stage): " + ", ".join(
+            f"{k} {v:.1f}" for k, v in row_r["split_ms"].items())
+        + f" | profiled round {p['round']}: " + (
+            "device not measured" if p["device_kernels"] is None else
+            f"{p['device_kernels']} device kernels ({p['host_launches']} "
+            f"host launch calls), {p['device_busy_ms']:.2f} ms busy, idle "
+            f"{p['idle_share']:.1%} of its own {p['wall_ms_profiled']:.1f} "
+            f"ms"))
+
+    # The launcher on the card.
+    for argv in (["--mode", "serve", "--streams", "4", "--frames", "4"],
+                 ["--mode", "pairwise", "--frames", "2"]):
+        _, wall, launches = counted(torch, lambda: launcher(argv))
+        add(launches)
+        out["launcher " + " ".join(argv)] = dict(wall_ms=wall,
+                                                  launches=launches)
+        log(f"phase9 launcher {' '.join(argv)}: {wall:.0f} ms, launches "
+            f"{launches}")
+        check(launches["nn_search"] > 0, f"phase9 launcher {argv}: "
+              f"nn_search never launched")
+    out["launch_totals"] = totals
+    out["kernel_checks"] = kernel_checks
+    for name in ("nn_search", "candidate_sweep"):
+        check(totals[name] > 0, f"phase9: the service path never launched "
+              f"{name}")
+        check(any(r["kernel"] == name for r in kernel_checks),
+              f"phase9: no {name} call was held to its plain version")
+    return out
+
+
 def compare_minimizers(report):
     """Log each point-to-plane run of phase 7 beside the point-to-point run
     of the same path (phases 2, 3 and 5): iterations and wall ms per
@@ -2026,8 +2490,9 @@ def main(argv=None):
     report["phase7"] = phase7(torch, np, scenes)
     compare_minimizers(report)
     report["phase8"] = phase8(torch, np)
-    totals = {k: v + report["phase7"]["launch_totals"][k]
-              + report["phase8"]["launch_totals"][k]
+    report["phase9"] = phase9(torch, np)
+    totals = {k: v + sum(report[f"phase{p}"]["launch_totals"][k]
+                         for p in (7, 8, 9))
               for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(
@@ -2040,9 +2505,10 @@ def main(argv=None):
     sweeps = {r["case"]: r for r in report["phase6"]["moment_sweep"]}
     planes = {r["case"]: r for r in report["phase6"]["fused_plane"]}
     ms6 = sweeps["seq0_b1"]
-    odom = report["phase8"]["kernel_checks"]
+    odom = (report["phase8"]["kernel_checks"]
+            + report["phase9"]["kernel_checks"])
 
-    def odom_err(kernel):  # phase 8: frame 10's calls against plain
+    def odom_err(kernel):  # phases 8-9: the main path's calls against plain
         return max(r["max_abs_err"] for r in odom if r["kernel"] == kernel)
     report["kernels"] = [dict(
         name="nn_search", route="cuda",

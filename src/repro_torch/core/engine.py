@@ -16,6 +16,8 @@ the ``register`` API:
   * ``"pyramid"`` (``core.pyramid.PyramidEngine``): coarse-to-fine ICP
     whose full-resolution polish runs the grid candidate sweep (or, fused,
     the moment kernel);
+  * ``"slots"`` (:class:`SlotEngine`): the ``"cuda"`` engine at a fixed
+    lane width, behind the multi-stream registration service;
   * a user callable ``nn_fn(src, dst) -> (d2, idx)`` (:class:`CallableEngine`).
 
 Every engine has a device, ``"cuda"`` unless the caller passes
@@ -26,9 +28,9 @@ collates variable-size pairs first.
 
 The reference's jit caches and their trace counters
 (``RegistrationEngine.trace_count``/``traces``) have no counterpart: PyTorch
-runs eagerly and compiles nothing per shape. The ``distributed``,
-``slots`` and ``sharded-slots`` engines are not ported yet; asking for them
-raises ``NotImplementedError`` naming their slice.
+runs eagerly and compiles nothing per shape. The ``distributed`` and
+``sharded-slots`` engines are not ported yet; asking for them raises
+``NotImplementedError`` naming their slice.
 
 Typical use::
 
@@ -218,6 +220,60 @@ class KernelEngine(RegistrationEngine):
         return icp_batch(src, dst, params, T0, src_valid=sv, **search)
 
 
+class SlotEngine(KernelEngine):
+    """Fixed-width slot-batch engine backing the multi-stream registration
+    service (``serve.registration_service``).
+
+    Every registration, the service's S-stream fleet step and a lone
+    single-frame :meth:`register` call alike, runs as one ``slots``-lane
+    batch through :func:`core.icp.icp`, the loop that stops when no lane
+    is active and keeps converged or inactive lanes frozen (the
+    reference's ``vmap(icp)`` while loop). Each lane searches through the
+    brute-force NN kernel against a target augmented once per call, as in
+    the ``"cuda"`` engine; the reference's lanes run its plain ``"xla"``
+    brute force, the same function.
+
+    A single-frame call embeds the frame at lane 0 among sentinel lanes
+    with all-False masks (they freeze as degenerate after one iteration)
+    and returns lane 0, so a per-stream ``OdometryPipeline`` on this engine
+    runs the same S-lane program as the service: the service's bit-exact
+    single-stream reference. A one-lane shortcut would run another
+    program on the card and break that contract.
+
+    The reference counts its jit traces; an eager engine traces nothing.
+    The service counts instead the distinct (params, S, N, M) batches its
+    rounds register (``service_report()["batch_shapes"]``).
+    """
+
+    name = "slots"
+
+    def __init__(self, chunk: int = 2048, slots: int = 8, device="cuda"):
+        super().__init__(chunk, device)
+        self.slots = int(slots)
+
+    def _register_batch(self, src, dst, params, T0, sv, dv) -> ICPResult:
+        src, dst, sv, search = self._prepare(src, dst, params, sv, dv)
+        return icp(src, dst, params, T0, src_valid=sv, **search)
+
+    def _register(self, src, dst, params, T0, sv, dv) -> ICPResult:
+        """The pair at lane 0 of a ``slots``-lane batch; the other lanes
+        hold sentinel rows with all-False masks."""
+        dev = src.device
+        if sv is None:
+            sv = torch.ones(src.shape[0], dtype=torch.bool, device=dev)
+        if dv is None:
+            dv = torch.ones(dst.shape[0], dtype=torch.bool, device=dev)
+        if T0 is None:
+            T0 = torch.eye(4, dtype=torch.float32, device=dev)
+        lane = torch.arange(self.slots, device=dev) == 0
+        src_b = torch.where(lane[:, None, None], src, PAD_SENTINEL)
+        dst_b = torch.where(lane[:, None, None], dst, PAD_SENTINEL)
+        T0_b = T0.expand(self.slots, 4, 4).contiguous()
+        res = self._register_batch(src_b, dst_b, params, T0_b,
+                                   lane[:, None] & sv, lane[:, None] & dv)
+        return ICPResult(*(x[0] for x in res))
+
+
 class CallableEngine(RegistrationEngine):
     """Adapter for a user ``nn_fn(src, dst) -> (d2, idx)`` over batched
     (..., N, 3)/(..., M, 3) clouds."""
@@ -237,7 +293,6 @@ _ENGINES: dict[str, Callable[..., RegistrationEngine]] = {}
 _SHARED: dict = {}  # (name, device, sorted kwargs) -> engine instance
 # Reference engines that later slices port (ROADMAP queue 1).
 _NOT_PORTED = {
-    "slots": "slice 5 (ROADMAP queue 1, item 6)",
     "distributed": "slice 6 (ROADMAP queue 1, item 6)",
     "sharded-slots": "slice 6 (ROADMAP queue 1, item 6)",
 }
@@ -289,6 +344,7 @@ def get_engine(spec, device="cuda", **kwargs) -> RegistrationEngine:
 
 register_engine("torch", TorchEngine)
 register_engine("cuda", KernelEngine)
+register_engine("slots", SlotEngine)
 
 # Imported for its side effect: registers the "pyramid" engine. It lives in
 # its own module (the voxel and grid stack); importing it last keeps the

@@ -179,12 +179,12 @@ def _grade(reasons: list, name: str, value: float, suspect: float,
 def host_result(result):
     """``result`` with its tensor fields as numpy arrays, fetched together.
 
-    An ``ICPResult`` of tensors (on the card or the CPU) is packed into one
-    float64 vector and fetched with one ``.cpu()``, then split back into
-    fields of their own shapes and dtypes: float32, int32 and bool values
-    pass through float64 exactly, so each field holds the bits that its own
-    ``.cpu()`` would give. Anything else (the reference's results, host
-    fakes) is returned as it is.
+    An ``ICPResult`` (or a plain tuple) of tensors, on the card or the CPU,
+    is packed into one float64 vector and fetched with one ``.cpu()``, then
+    split back into fields of their own shapes and dtypes: float32, int32
+    and bool values pass through float64 exactly, so each field holds the
+    bits that its own ``.cpu()`` would give. Anything else (the
+    reference's results, host fakes) is returned as it is.
     """
     if not (isinstance(result, tuple) and result
             and all(isinstance(x, torch.Tensor) for x in result)):
@@ -198,7 +198,7 @@ def host_result(result):
         out.append(flat[at:at + x.numel()].reshape(tuple(x.shape))
                    .astype(dtype))
         at += x.numel()
-    return type(result)(*out)
+    return type(result)(*out) if hasattr(result, "_fields") else tuple(out)
 
 
 def assess_registration(result, *, predicted: np.ndarray | None = None,

@@ -188,6 +188,24 @@ def _scan_plane_system(src: torch.Tensor, sv: torch.Tensor,
     return (a * w[..., None]).mT @ a
 
 
+def out_of_lattice_frac(T: torch.Tensor, src: torch.Tensor,
+                        sv: torch.Tensor, origin: torch.Tensor,
+                        params: SubmapParams) -> torch.Tensor:
+    """Fraction of the valid rows of ``src`` (..., N, 3), moved by ``T``
+    (..., 4, 4), that fall outside the submap lattice anchored at
+    ``origin`` (..., 3): a bounds check, no grid build. One function for a
+    single frame and for a batch of lanes (the reference's ``_lattice_one``
+    and its vmap), so the two give the same bits per lane."""
+    dev = src.device
+    pts = transform_points(T, src)
+    v = torch.tensor(params.voxel_size, dtype=torch.float32, device=dev)
+    c = torch.floor((pts - origin.unsqueeze(-2)) / v)
+    dims = torch.tensor(params.dims, dtype=torch.float32, device=dev)
+    inb = ((c >= 0) & (c < dims)).all(-1)
+    n_valid = sv.sum(-1).clamp_min(1)
+    return (sv & ~inb).sum(-1) / n_valid
+
+
 def _decay_toward_identity(T: np.ndarray, factor: float) -> np.ndarray:
     """Shrink a rigid motion: translation scaled by ``factor``, rotation
     angle scaled by ``factor`` about the same axis (Rodrigues)."""
@@ -251,18 +269,11 @@ class OdometryPipeline:
     # -- health ------------------------------------------------------------
     def _out_of_lattice_frac(self, res, src, sv) -> float:
         """Fraction of the (pose-transformed) scan outside the submap
-        lattice: the low-overlap/teleport signal. A bounds check against
-        the rolling lattice; no grid build."""
-        p = self.submap.params
-        dev = src.device
-        T = torch.as_tensor(res.T, dtype=torch.float32, device=dev)
-        pts = transform_points(T, src)
-        v = torch.tensor(p.voxel_size, dtype=torch.float32, device=dev)
-        c = torch.floor((pts - self.submap.origin) / v)
-        dims = torch.tensor(p.dims, dtype=torch.float32, device=dev)
-        inb = ((c >= 0) & (c < dims)).all(-1)
-        n_valid = sv.sum().clamp_min(1)
-        return float((sv & ~inb).sum() / n_valid)
+        lattice: the low-overlap/teleport signal
+        (:func:`out_of_lattice_frac`)."""
+        T = torch.as_tensor(res.T, dtype=torch.float32, device=src.device)
+        return float(out_of_lattice_frac(T, src, sv, self.submap.origin,
+                                         self.submap.params))
 
     def _assess(self, res, T0, src, sv, condition: float | None = None,
                 trust_prediction: bool = True,

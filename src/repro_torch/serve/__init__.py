@@ -1,0 +1,8 @@
+"""Serving layer of the port: the multi-stream registration service
+(``registration_service``), single-device."""
+from repro_torch.serve.registration_service import (
+    RegistrationService, ServiceConfig, StreamReport,
+    service_config_from_reference)
+
+__all__ = ["RegistrationService", "ServiceConfig", "StreamReport",
+           "service_config_from_reference"]

@@ -387,3 +387,163 @@ def test_odometry_stream_on_card_matches_cpu(cuda_device):
     assert tiers == [d.recovery_tier for d in cpu_diags]
     assert tiers == [0] * 5  # one (primary) registration a frame
     assert n1 == n2 == sum(d.iterations for d in d1)
+
+
+# -- slice 5: lane independence under the multi-stream service ---------------
+
+FLEET = 8
+
+
+def _fleet_lanes(dev, seqs=range(FLEET)):
+    """Frame 0 of each sequence (default scene, ~30-37k points), padded to
+    the service's 49,152-row staging capacity: (8, 49152, 3) and masks."""
+    from repro_torch.data.collate import pad_cloud
+    from repro_torch.data.pointcloud import sequence_scans
+    staged = [pad_cloud(sequence_scans(s, 1)[0], 49152) for s in seqs]
+    pts = torch.from_numpy(np.stack([p for p, _ in staged])).to(dev)
+    valid = torch.from_numpy(np.stack([v for _, v in staged])).to(dev)
+    return pts, valid
+
+
+def _poses(rng, n):
+    from repro_torch.core.transform import make_transform
+    from repro_torch.core.transform import rotation_from_axis_angle as rot
+    R = rot(torch.tensor([0.0, 0.0, 1.0]), torch.tensor(
+        rng.uniform(-0.2, 0.2, n), dtype=torch.float32))
+    t = torch.tensor(rng.uniform(-3, 3, (n, 3)), dtype=torch.float32)
+    return make_transform(R, t)
+
+
+@pytest.mark.parametrize("storage", ["fp32", "fp16"])
+def test_batched_prepare_probe_fuse_lane_bits_on_card(cuda_device, storage):
+    """The service's batched scrub + downsample, lattice probe and fuse over
+    8 full-size lanes give each lane the bits of the standalone pipeline's
+    one-lane calls (``prepare_frame``'s downsample, ``out_of_lattice_frac``
+    on one frame, ``Submap.insert`` of the transformed scan), twice over so
+    the second fuse meets a non-empty map."""
+    from repro_torch.core.odometry import OdometryConfig, out_of_lattice_frac
+    from repro_torch.core.transform import transform_points
+    from repro_torch.data.submap import Submap, empty_state
+    from repro_torch.serve.registration_service import (_fuse_batch,
+                                                        _prepare_batch)
+    cfg = OdometryConfig(scan_budget=16384)
+    params = cfg.submap._replace(storage=storage)
+    pts, valid = _fleet_lanes(cuda_device)
+    src_b, sv_b, nv_b = _prepare_batch(pts, valid, cfg.scan_voxel,
+                                       cfg.scan_budget)
+    lanes = [_prepare_lane(pts[k], valid[k], cfg) for k in range(FLEET)]
+    for k, (src, sv) in enumerate(lanes):
+        assert torch.equal(src, src_b[k]) and torch.equal(sv, sv_b[k])
+        assert int(sv.sum()) == int(nv_b[k])
+    rng = np.random.default_rng(5)
+    state_b = empty_state(params, cuda_device, batch=(FLEET,))
+    maps = [Submap(params, device=cuda_device) for _ in range(FLEET)]
+    accept = torch.ones(FLEET, dtype=torch.bool, device=cuda_device)
+    for _ in range(2):
+        pose_b = _poses(rng, FLEET).to(cuda_device)
+        lat_b = out_of_lattice_frac(pose_b, src_b, sv_b, state_b[-1], params)
+        state_b, occ_b, drop_b = _fuse_batch(state_b, src_b, sv_b, pose_b,
+                                             accept, params)
+        for k, (src, sv) in enumerate(lanes):
+            lat = out_of_lattice_frac(pose_b[k], src, sv, maps[k].origin,
+                                      params)
+            assert torch.equal(lat, lat_b[k])
+            maps[k].insert(transform_points(pose_b[k], src),
+                           center=pose_b[k, :3, 3], valid=sv)
+            for leaf, leaf_b in zip(maps[k].state, state_b):
+                assert torch.equal(leaf, leaf_b[k]), (k, storage)
+            assert maps[k].size == int(occ_b[k])
+            assert maps[k].dropped_cells == int(drop_b[k]) == 0
+
+
+def _prepare_lane(pts, valid, cfg):
+    """``OdometryPipeline.prepare_frame``'s scrub and downsample of one
+    staged scan."""
+    from repro_torch.core.icp import scrub_nonfinite
+    from repro_torch.data.voxelize import voxel_downsample
+    pts, valid = scrub_nonfinite(pts, valid)
+    return voxel_downsample(pts, cfg.scan_voxel, max_points=cfg.scan_budget,
+                            valid=valid)
+
+
+def test_nn_kernel_lane_bits_at_service_shape_on_card(cuda_device):
+    """The NN kernel at the service's shape (B=8, 16,384 sources against
+    24,576 map rows): each lane's d² and index bits are the same with the
+    lanes permuted and with the other lanes replaced by sentinel lanes (the
+    operands of idle and non-registering lanes)."""
+    from repro_torch.data.collate import PAD_SENTINEL
+    from repro_torch.kernels.ops import resident_nn_fn
+    rng = np.random.default_rng(8)
+    src = _uniform(rng, (FLEET, 16384, 3), cuda_device)
+    dst = _uniform(rng, (FLEET, 24576, 3), cuda_device)
+    d2, idx = resident_nn_fn(dst)(src)
+    perm = [5, 2, 7, 0, 1, 6, 3, 4]
+    d2_p, idx_p = resident_nn_fn(dst[perm])(src[perm])
+    lone = torch.arange(FLEET, device=cuda_device) == 3
+    d2_s, idx_s = resident_nn_fn(torch.where(lone[:, None, None], dst,
+                                             PAD_SENTINEL))(
+        torch.where(lone[:, None, None], src, PAD_SENTINEL))
+    torch.cuda.synchronize()
+    assert torch.equal(d2_p, d2[perm]) and torch.equal(idx_p, idx[perm])
+    assert torch.equal(d2_s[3], d2[3]) and torch.equal(idx_s[3], idx[3])
+
+
+def test_kabsch_lane_bits_on_card(cuda_device):
+    """``estimate_rigid_transform`` over (8, 16384, 3): a lane's T is the
+    same bits whatever the other lanes hold and wherever it sits."""
+    from repro_torch.core.transform import estimate_rigid_transform
+    rng = np.random.default_rng(9)
+    src = _uniform(rng, (FLEET, 16384, 3), cuda_device)
+    dst = src + _uniform(rng, (FLEET, 16384, 3), cuda_device, scale=0.3)
+    w = torch.from_numpy(rng.uniform(0, 1, (FLEET, 16384)).astype(
+        np.float32)).to(cuda_device)
+    T = estimate_rigid_transform(src, dst, w)
+    perm = [7, 6, 5, 4, 3, 2, 1, 0]
+    T_p = estimate_rigid_transform(src[perm], dst[perm], w[perm])
+    other = _uniform(rng, (FLEET, 16384, 3), cuda_device)
+    keep = (torch.arange(FLEET, device=cuda_device) == 2)[:, None, None]
+    T_o = estimate_rigid_transform(torch.where(keep, src, other),
+                                   torch.where(keep, dst, other * 1.01),
+                                   torch.where(keep[..., 0], w, 0.5))
+    torch.cuda.synchronize()
+    assert torch.equal(T_p, T[perm])
+    assert torch.equal(T_o[2], T[2])
+
+
+def test_service_matches_standalone_on_card(cuda_device):
+    """A 3-stream small-scene fleet through the service on the card gives
+    the bits of standalone ``OdometryPipeline(svc.stream_config)`` replays
+    of its staged frames, poses and diagnostics; every registration
+    launched the NN kernel."""
+    from repro_torch.core.icp import ICPParams as Params
+    from repro_torch.core.odometry import OdometryConfig, OdometryPipeline
+    from repro_torch.data.pointcloud import SceneConfig, sequence_scans
+    from repro_torch.data.submap import SubmapParams
+    from repro_torch.serve import RegistrationService, ServiceConfig
+    scene = SceneConfig(n_ground=300, n_walls=220, n_poles=60, n_clutter=70,
+                        extent=12.0, sensor_range=16.0)
+    odo = OdometryConfig(
+        params=Params(max_iterations=6, chunk=512, robust_kernel="huber",
+                      robust_scale=0.3),
+        submap=SubmapParams(voxel_size=0.75, capacity=1024, dims=(48, 48, 16),
+                            evict_radius=12.0),
+        scan_budget=256, recovery=False)
+    svc = RegistrationService(ServiceConfig(slots=4, scan_capacity=1024,
+                                            odometry=odo), device=cuda_device)
+    fleet = {f"veh{s}": sequence_scans(s, 5, scene) for s in range(3)}
+    for sid in fleet:
+        svc.admit(sid)
+    out = {sid: [] for sid in fleet}
+    before = nn_search_kernel.launches
+    for f in range(5):
+        for sid, scans in fleet.items():
+            svc.submit(sid, scans[f])
+        for sid, res in svc.step().items():
+            out[sid].append(res)
+    assert nn_search_kernel.launches - before >= 4  # frames 1-4 register
+    for sid, scans in fleet.items():
+        ref = OdometryPipeline(svc.stream_config, device=cuda_device)
+        for f, scan in enumerate(scans):
+            pose, diag = ref.process(*svc.stage_scan(scan))
+            assert np.array_equal(pose, out[sid][f][0]), (sid, f)
+            assert repr(tuple(diag)) == repr(tuple(out[sid][f][1])), (sid, f)

@@ -183,8 +183,10 @@ def test_engine_registry():
                                                            device="cpu")
     assert isinstance(get_engine("cuda", device="cpu"), KernelEngine)
     assert get_engine("pyramid", device="cpu").name == "pyramid"
-    for name in ("distributed", "slots", "sharded-slots"):
-        with pytest.raises(NotImplementedError, match="slice"):
+    slots = get_engine("slots", device="cpu", slots=4)
+    assert isinstance(slots, KernelEngine) and slots.slots == 4
+    for name in ("distributed", "sharded-slots"):
+        with pytest.raises(NotImplementedError, match="slice 6"):
             get_engine(name, device="cpu")
     with pytest.raises(ValueError):
         get_engine("bogus", device="cpu")
