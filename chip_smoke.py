@@ -121,9 +121,34 @@ that fails raises. Phases:
      prepare, classify, register, probe+fetch, complete and fuse. Then the
      launcher, ``repro_torch.launch.registration.main`` in ``serve`` and
      ``pairwise`` mode.
+ 10. Stream-sharded and point-sharded registration (``core.distributed``)
+     on the one card: phase 9 (b)'s fleet through the sharded service,
+     (a) ``ServiceConfig(slots=8, devices=1)`` on ``cuda:0``, every stream
+     the bits of phase 9 (b); (b) ``devices=2`` over ``["cuda:0",
+     "cuda:0"]`` (two blocks of 4 lanes in lockstep), every stream the
+     bits of its standalone replay on ``"sharded-slots"``
+     (``lanes_per_device=4, devices=1``), (a)'s verdicts on every frame,
+     round 1 (the same inputs as (a)'s, another block width) within 1e-3 m
+     of (a), seq 0 within 0.05 m of the JAX reference run of phase 9 (the
+     gap to (a) on later frames recorded: an ICP that stops at the epsilon
+     can stop elsewhere for a last-bit change; the stream that drifts most
+     gives (b)'s bits alone through the single-device ``"slots"`` engine
+     at width 4), a round's NN-kernel calls held to the
+     plain version's bits, the NN launches of every round equal to the
+     blocks' loop steps, one profiled round's device kernels and busy ms;
+     (c) the ``"distributed"`` engine on phase 3's 8 seq-0 pairs over a
+     1 x 2 ``("data", "model")`` mesh of ``cuda:0`` (8 frames, 2 target
+     shards), the bits of the ``"cuda"`` engine's ``register_pairs``, and
+     over a 2 x 2 mesh (2 blocks of 4 frames), the bits of the ``"cuda"``
+     engine on each block's frames (its gap to the B=8 run recorded beside
+     the ``"cuda"`` engine's own B=4-vs-B=8 gap); (d)
+     ``distributed_nn_search`` at 4096 x 32768 over 4 target shards
+     against one NN-kernel call (expected: the same bits; d² held to 1e-4).
+     Recorded, no speed claimed (the blocks share one card): round ms of
+     (a) and (b) beside phase 9 (b)'s, wall ms of (c), (d) against one call.
 
 Every kernel count is set to 0 just before each main-path run (phases 2, 3,
-5, 7, 8 and 9) and read just after. The last lines are the ``{"kernels": [...]}``
+5, 7, 8, 9 and 10) and read just after. The last lines are the ``{"kernels": [...]}``
 report, the card line from ``nvidia-smi`` and ``{"ok": true, "device":
 {...}}``.
 """
@@ -1575,7 +1600,8 @@ def hold_captured(torch, run, captured, regs,
     for (i, kernel, shapes), c in sorted(captured.items(),
                                          key=lambda kv: kv[0][:2]):
         r = regs[i]
-        label = {"cuda": "fallback", "slots": "fleet"}.get(
+        label = {"cuda": "fallback", "slots": "fleet",
+                 "sharded-slots": "fleet"}.get(
             r["engine"], tiers.get(tuple(r["levels"]), str(r["levels"])))
         args, kw, main = c["args"], c["kwargs"], c["out"]
         if kernel == "nn_search":
@@ -2389,6 +2415,342 @@ def phase9(torch, np):
               f"{name}")
         check(any(r["kernel"] == name for r in kernel_checks),
               f"phase9: no {name} call was held to its plain version")
+    return out, dict(outputs=out_b, frames=frames_b, order=order, cap=cap,
+                     odo=odo_b, round_ms=row_b["median_round_ms"])
+
+
+# Slice 6: stream-sharded and point-sharded registration. Phase 9 (b)'s
+# fleet (seqs 0-7, 8 frames, recovery off) through the sharded service: (a)
+# one block of 8 lanes, (b) two blocks of 4 lanes on the one card; then the
+# "distributed" engine and the point-sharded NN search on phase 3's pairs.
+SHARD_BLOCKS = 2            # (b): blocks on cuda:0
+SHARD_TOL = 1e-4            # (d): tests/multidevice_worker.py's band
+WIDTH_TOL_M = 1e-3          # (b) vs (a), round 1: the port-vs-reference bar
+
+
+def phase10(torch, np, scenes, fleet, dev=None):
+    """The sharded registration paths at full size on one card (``dev``,
+    default ``cuda:0``)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.engine import ShardedSlotEngine, get_engine
+    from repro_torch.core.odometry import OdometryPipeline
+    from repro_torch.data.collate import PAD_SENTINEL
+    from repro_torch.kernels.nn_search import nn_search_kernel
+    from repro_torch.kernels.ops import nn_search_cuda
+    from repro_torch.serve import RegistrationService, ServiceConfig
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    t_phase = time.perf_counter()
+    frames, order, odo = fleet["frames"], fleet["order"], fleet["odo"]
+    n_rounds = len(frames[order[0]])
+    out, kernel_checks = {}, []
+    totals = dict(nn_search=0, candidate_sweep=0, fused_moment_sweep=0,
+                  moment_sweep=0)
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    def record_blocks(regs, tag):
+        """Log each block of every ``register_blocks`` call as one
+        registration of ``regs`` (expected launches: each block's loop
+        steps, its lanes' most iterations). Returns the restore."""
+        orig = ShardedSlotEngine.register_blocks
+
+        def register_blocks(self, *args, **kwargs):
+            res = orig(self, *args, **kwargs)
+            params = args[2] if len(args) > 2 else kwargs.get("params")
+            for block in res:
+                regs.append(dict(engine=self.name, levels=(),
+                                 fused=params.fused, res=block, tag=tag(),
+                                 ms=None))
+            return res
+        ShardedSlotEngine.register_blocks = register_blocks
+        return lambda: setattr(ShardedSlotEngine, "register_blocks", orig)
+
+    def sharded_run(name, devices, capture_round=None, profile_round=None):
+        """The fleet through a fresh sharded service on ``devices`` (one
+        block a list entry), counted; ``capture_round`` keeps the NN-kernel
+        operands of that round for :func:`hold_captured`."""
+        svc = RegistrationService(ServiceConfig(
+            slots=FLEET_SLOTS, scan_capacity=fleet["cap"], odometry=odo,
+            devices=len(devices)), device=devices)
+        for sid in order:
+            svc.admit(sid)
+        regs, restore = record_registrations(torch, tag=lambda: svc.rounds)
+        unblock = record_blocks(regs, tag=lambda: svc.rounds)
+        captured, uncapture = capture_operands(
+            torch, regs, lambda: svc.rounds - 1 == capture_round,
+            ("nn_search",) if capture_round is not None else ())
+        outputs = {sid: [] for sid in order}
+        rounds, profile = [], {}
+
+        def one_round(f):
+            t = time.perf_counter()
+            n0, r0 = nn_search_kernel.launches, len(regs)
+            for sid in order:
+                svc.submit(sid, *frames[sid][f])
+            res = svc.step()
+            svc.sync()
+            for sid, r in res.items():
+                outputs[sid].append(r)
+            steps = [int(r["res"].iterations.max()) for r in regs[r0:]]
+            rounds.append(dict(round=f, wall_ms=(time.perf_counter() - t)
+                               * 1e3, nn_launches=nn_search_kernel.launches
+                               - n0, block_steps=steps))
+
+        def run():
+            for f in range(n_rounds):
+                if f == profile_round:
+                    k, busy, host = device_profile(torch,
+                                                   lambda: one_round(f))
+                    wall = rounds[-1]["wall_ms"]
+                    profile.update(round=f, device_kernels=k,
+                                   device_busy_ms=busy, host_launches=host,
+                                   wall_ms_profiled=wall,
+                                   idle_share=(None if busy is None
+                                               else 1.0 - busy / wall))
+                else:
+                    one_round(f)
+        try:
+            _, wall, launches = counted(torch, run)
+        finally:
+            restore()
+            unblock()
+            uncapture()
+        expect = expected_launches(regs)
+        check(launches == expect, f"phase10 {name}: launches {launches}, "
+              f"expected {expect} (the blocks' loop steps)")
+        for r in rounds:
+            check(r["nn_launches"] == sum(r["block_steps"]),
+                  f"phase10 {name} round {r['round']}: {r['nn_launches']} "
+                  f"NN launches, blocks' loop steps {r['block_steps']}")
+        add(launches)
+        steady = [r for r in rounds if r["round"] >= FLEET_STEADY
+                  and r["round"] != profile_round]
+        row = dict(devices=[str(d) for d in devices], launches=launches,
+                   wall_ms=wall, rounds=rounds,
+                   median_round_ms=statistics.median(
+                       r["wall_ms"] for r in steady),
+                   fps=len(order) * len(steady)
+                   / (sum(r["wall_ms"] for r in steady) / 1e3),
+                   service_report=svc.service_report())
+        check(row["service_report"]["devices"] == len(devices)
+              and row["service_report"]["batch_shapes"] == 1,
+              f"phase10 {name}: service report {row['service_report']}")
+        if profile:
+            row["profile_round"] = profile
+        if captured:
+            row["kernel_checks"] = hold_captured(
+                torch, name, captured, regs,
+                where=f"phase10 {{run}} round {capture_round}")
+            kernel_checks.extend(row["kernel_checks"])
+        log(f"phase10 {name}: {len(devices)} block(s) of "
+            f"{FLEET_SLOTS // len(devices)} lanes on {row['devices']}, "
+            f"launches {launches} | median round (>= {FLEET_STEADY}) "
+            f"{row['median_round_ms']:.1f} ms, {row['fps']:.2f} frames/s | "
+            f"per round: NN launches {[r['nn_launches'] for r in rounds]} "
+            f"= the blocks' loop steps {[r['block_steps'] for r in rounds]}"
+            f", wall ms {[round(r['wall_ms'], 1) for r in rounds]}")
+        out[name] = row
+        return svc, outputs, row
+
+    # (a) one block of 8 lanes: phase 9 (b)'s program, its bits.
+    _, out_a, row_a = sharded_run("a_one_block", [str(dev)])
+    for sid in order:
+        check(same_stream(np, out_a[sid], fleet["outputs"][sid]),
+              f"phase10 a: {sid} differs from phase 9 (b)")
+    log(f"phase10 a: every stream bit-identical to phase 9 (b) (the "
+        f"single-device service at slots={FLEET_SLOTS}); round "
+        f"{row_a['median_round_ms']:.1f} ms against phase 9 (b)'s "
+        f"{fleet['round_ms']:.1f} ms in this call")
+
+    # (b) two blocks of 4 lanes on one card.
+    svc_b, out_b, row_b = sharded_run(
+        "b_two_blocks", [str(dev)] * SHARD_BLOCKS,
+        capture_round=FLEET_CAPTURE_ROUND, profile_round=FLEET_PROFILE_ROUND)
+    lanes = FLEET_SLOTS // SHARD_BLOCKS
+    replay_cfg = odo._replace(engine="sharded-slots", engine_kwargs=(
+        ("lanes_per_device", lanes), ("devices", 1)))
+    regs, restore = record_registrations(torch)
+
+    def replays():
+        res = {}
+        for sid in order:
+            pipe = OdometryPipeline(replay_cfg, device=dev)
+            res[sid] = [pipe.process(*svc_b.stage_scan(*fr))
+                        for fr in frames[sid]]
+        return res
+    try:
+        rep, wall, launches = counted(torch, replays)
+    finally:
+        restore()
+    check(launches == expected_launches(regs), f"phase10 b_replay: launches "
+          f"{launches}, expected {expected_launches(regs)}")
+    add(launches)
+    row_b["replay"] = dict(launches=launches, wall_ms=wall)
+    gaps = {}
+    for sid in order:
+        check(same_stream(np, out_b[sid], rep[sid]), f"phase10 b: {sid} "
+              f"differs from its standalone replay (sharded-slots, "
+              f"lanes_per_device={lanes}, devices=1)")
+        gaps[sid] = [float(np.linalg.norm(p[:3, 3] - q[:3, 3]))
+                     for (p, _), (q, _) in zip(out_b[sid], out_a[sid])]
+        log(f"phase10 b vs a {sid}: |t_b - t_a| per frame "
+            f"{np.round(gaps[sid], 4).tolist()} m; iterations b "
+            f"{[d.iterations for _, d in out_b[sid]]} a "
+            f"{[d.iterations for _, d in out_a[sid]]}")
+    row_b["position_gap_to_a_m"] = gaps
+    worst = max(max(g) for g in gaps.values())
+    first = max(g[1] for g in gaps.values())
+    row_b["max_position_gap_to_a_m"] = worst
+    row_b["round1_position_gap_to_a_m"] = first
+    for sid in order:
+        verdicts = [(x.recovery_tier, x.health, x.quarantined, x.accepted)
+                    for _, x in out_b[sid]]
+        check(verdicts == [(x.recovery_tier, x.health, x.quarantined,
+                            x.accepted) for _, x in out_a[sid]],
+              f"phase10 b: {sid}'s verdicts differ from (a)'s")
+    # Round 1 registers the same inputs in (a) and (b) (the bootstrap maps
+    # are the same bits): one registration's float tolerance across block
+    # widths. Later frames start from the stream's own earlier poses, and an
+    # ICP that stops where its step falls under the epsilon can stop at
+    # another iteration for a last-bit change: the gap is recorded, and the
+    # same spread shows between lane widths of the single-device slot
+    # engine (ROADMAP queue 3).
+    check(first <= WIDTH_TOL_M, f"phase10 b: round 1 off (a) by {first} m "
+          f"(band {WIDTH_TOL_M})")
+    # The stream that drifts most, alone through the single-device slot
+    # engine at (b)'s block width: no sharding, and (b)'s bits.
+    far = max(order, key=lambda sid: max(gaps[sid]))
+    pipe = OdometryPipeline(odo._replace(
+        engine="slots", engine_kwargs=(("slots", lanes),)), device=dev)
+    alone = [pipe.process(*svc_b.stage_scan(*fr)) for fr in frames[far]]
+    check(same_stream(np, alone, out_b[far]), f"phase10 b: {far} through "
+          f"the single-device slots engine at width {lanes} differs from (b)")
+    row_b["drift_stream"] = far
+    hold_to_reference("b_two_blocks seq0", np,
+                      np.stack([p for p, _ in out_b["seq0"]]),
+                      [d for _, d in out_b["seq0"]], row_b,
+                      FLEET_REF_POSITIONS, FLEET_REF_VERDICTS,
+                      phase="phase10")
+    check(any(r["kernel"] == "nn_search"
+              for r in row_b.get("kernel_checks", ())),
+          "phase10 b: no NN-kernel call of the fleet was held to plain")
+    p = row_b["profile_round"]
+    log(f"phase10 b: every stream bit-identical to its standalone replay "
+        f"on sharded-slots (lanes_per_device={lanes}, devices=1; {launches} "
+        f"launches); (a)'s verdicts on every frame; round 1 within "
+        f"{first:.2e} m of (a) (band {WIDTH_TOL_M}), every frame within "
+        f"{worst:.4f} m ({far}; alone through the single-device slots engine "
+        f"at width {lanes}: (b)'s bits, so the drift is the width's) | "
+        f"profiled round {p['round']}: " + (
+            "device not measured" if p["device_kernels"] is None else
+            f"{p['device_kernels']} device kernels ({p['host_launches']} "
+            f"host launch calls), {p['device_busy_ms']:.2f} ms busy, idle "
+            f"{p['idle_share']:.1%} of its own {p['wall_ms_profiled']:.1f} "
+            f"ms"))
+
+    # (c) the "distributed" engine over 2 x 2 and 1 x 2 meshes of the card
+    pairs = [(s, d) for s, d, _ in scenes["seq0"]]
+
+    def mesh(shape):
+        return dist.Mesh(np.array([str(dev)] * int(np.prod(shape)),
+                                  dtype=object).reshape(shape),
+                         ("data", "model"))
+    single = get_engine("cuda", device=dev)
+    grid = get_engine("distributed", device=dev, mesh=mesh((2, 2)))
+    row = get_engine("distributed", device=dev, mesh=mesh((1, 2)))
+    for eng in (single, grid, row):
+        eng.register_pairs(pairs)  # warm-up
+    (res_1, _), wall_1, launches_1 = counted(
+        torch, lambda: single.register_pairs(pairs))
+    (res_g, batch), wall_g, launches_g = counted(
+        torch, lambda: grid.register_pairs(pairs))
+    (res_r, _), wall_r, launches_r = counted(
+        torch, lambda: row.register_pairs(pairs))
+    halves = [single.register_pairs(pairs[:4])[0],
+              single.register_pairs(pairs[4:])[0]]
+    for launches in (launches_1, launches_g, launches_r):
+        add(launches)
+    check((launches_1["nn_search"], launches_g["nn_search"],
+           launches_r["nn_search"]) == (50, 200, 100),
+          f"phase10 c: NN launches {launches_1['nn_search']}, "
+          f"{launches_g['nn_search']}, {launches_r['nn_search']}; expected "
+          f"50 iterations x 1, x 2 frame blocks x 2 shards, x 2 shards")
+
+    def bits(a, b):
+        return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+    T_half = torch.cat([h.T for h in halves])
+    halves_res = [torch.cat(x) for x in zip(*halves)]
+    # Equal batch width, the same bits: the sharded search is one search's.
+    check(bits(res_r, res_1), "phase10 c: the 1 x 2 mesh (one block of 8 "
+          "frames, 2 target shards) differs from the cuda engine's bits")
+    check(bits(res_g, halves_res), "phase10 c: the 2 x 2 mesh differs from "
+          "the cuda engine's bits on each block's 4 frames")
+    errs = [rt_err(a, b) for a, b in zip(res_g.T.cpu().numpy(),
+                                         res_1.T.cpu().numpy())]
+    rot, trans = max(e[0] for e in errs), max(e[1] for e in errs)
+    own = [rt_err(a, b) for a, b in zip(T_half.cpu().numpy(),
+                                        res_1.T.cpu().numpy())]
+    out["c_distributed"] = dict(
+        buckets=[batch.src.shape[1], batch.dst.shape[1]],
+        wall_ms_2x2=wall_g, wall_ms_1x2=wall_r, cuda_wall_ms=wall_1,
+        launches_2x2=launches_g, launches_1x2=launches_r,
+        max_rot_rad_vs_b8=rot, max_trans_m_vs_b8=trans,
+        cuda_b4_vs_b8=[max(e[0] for e in own), max(e[1] for e in own)],
+        iterations_2x2=res_g.iterations.tolist(),
+        iterations_b8=res_1.iterations.tolist())
+    log(f"phase10 c: 'distributed' on phase 3's 8 seq-0 pairs "
+        f"(N={batch.src.shape[1]}, M={batch.dst.shape[1]}): the 1 x 2 mesh "
+        f"(8 frames, 2 target shards) the 'cuda' engine's bits, the 2 x 2 "
+        f"mesh (2 blocks of 4 frames) the bits of the 'cuda' engine on each "
+        f"block's frames; the 2 x 2 mesh {rot:.2e} rad / {trans:.2e} m from "
+        f"the 'cuda' engine's B=8 run (iterations "
+        f"{res_g.iterations.tolist()} against {res_1.iterations.tolist()}),"
+        f" as the 'cuda' engine's own B=4 halves are ({max(e[1] for e in own):.2e} m) "
+        f"| wall {wall_g:.1f} ms (2 x 2, {launches_g['nn_search']} NN "
+        f"launches), {wall_r:.1f} ms (1 x 2, {launches_r['nn_search']}), "
+        f"{wall_1:.1f} ms ('cuda', {launches_1['nn_search']})")
+
+    # (d) the point-sharded NN search against one kernel call
+    src, dst, _ = scenes["seq0"][0]
+    src = torch.as_tensor(src, device=dev)
+    target = torch.full((32768, 3), PAD_SENTINEL, device=dev)
+    target[:len(dst)] = torch.as_tensor(dst, device=dev)
+    mesh4 = dist.Mesh(np.array([str(dev)] * 4, dtype=object), ("model",))
+    (d2, idx), _, launches_s = counted(
+        torch, lambda: dist.distributed_nn_search(mesh4, src, target))
+    add(launches_s)
+    d2_1, idx_1 = nn_search_cuda(src, target)
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(d2, d2_1) and torch.equal(idx, idx_1))
+    max_d2 = float((d2 - d2_1).abs().max())
+    mism = int((idx != idx_1).sum())
+    check(launches_s["nn_search"] == 4, f"phase10 d: "
+          f"{launches_s['nn_search']} NN launches, expected 4")
+    check(max_d2 <= SHARD_TOL, f"phase10 d: d2 off one kernel call by "
+          f"{max_d2}")
+    if not bit_equal:
+        log(f"phase10 d: MISMATCH against one kernel call: {mism} indices, "
+            f"max |d2| {max_d2} (within {SHARD_TOL})")
+    ms_s = time_ms(torch, lambda: dist.distributed_nn_search(mesh4, src,
+                                                             target))
+    ms_1 = time_ms(torch, lambda: nn_search_cuda(src, target))
+    shape = [src.shape[0], target.shape[0]]
+    out["d_nn_search"] = dict(shards=4, shape=shape,
+                              bit_equal=bit_equal, idx_mismatch=mism,
+                              max_abs_d2=max_d2, ms=ms_s, single_ms=ms_1)
+    log(f"phase10 d: distributed_nn_search, {shape[0]} x {shape[1]} over 4 "
+        f"target shards of {dev}: bit-equal to one NN-kernel call {bit_equal} "
+        f"({mism} index mismatches, max |d2| {max_d2}) | {ms_s:.3f} ms "
+        f"against {ms_1:.3f} ms for the one call (host and device, CUDA "
+        f"events)")
+    out["launch_totals"] = totals
+    out["kernel_checks"] = kernel_checks
+    check(totals["nn_search"] > 0, "phase10: the sharded paths never "
+          "launched nn_search")
+    log(f"phase10: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2490,9 +2852,10 @@ def main(argv=None):
     report["phase7"] = phase7(torch, np, scenes)
     compare_minimizers(report)
     report["phase8"] = phase8(torch, np)
-    report["phase9"] = phase9(torch, np)
+    report["phase9"], fleet = phase9(torch, np)
+    report["phase10"] = phase10(torch, np, scenes, fleet)
     totals = {k: v + sum(report[f"phase{p}"]["launch_totals"][k]
-                         for p in (7, 8, 9))
+                         for p in (7, 8, 9, 10))
               for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(
@@ -2506,9 +2869,10 @@ def main(argv=None):
     planes = {r["case"]: r for r in report["phase6"]["fused_plane"]}
     ms6 = sweeps["seq0_b1"]
     odom = (report["phase8"]["kernel_checks"]
-            + report["phase9"]["kernel_checks"])
+            + report["phase9"]["kernel_checks"]
+            + report["phase10"]["kernel_checks"])
 
-    def odom_err(kernel):  # phases 8-9: the main path's calls against plain
+    def odom_err(kernel):  # phases 8-10: the main path's calls vs plain
         return max(r["max_abs_err"] for r in odom if r["kernel"] == kernel)
     report["kernels"] = [dict(
         name="nn_search", route="cuda",

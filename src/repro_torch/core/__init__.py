@@ -1,13 +1,15 @@
 """Core registration stack of the port: transforms, NN search (brute force
 and voxel grid), ICP (point-to-point and point-to-plane), the coarse-to-fine
-pyramid, engines, the Table-I API, registration health and streaming
-scan-to-map odometry. Surface normals live in ``repro_torch.data.normals``,
+pyramid, engines, the Table-I API, registration health, streaming
+scan-to-map odometry and stream- and point-sharded registration
+(``core.distributed``). Surface normals live in ``repro_torch.data.normals``,
 which imports this package."""
 from repro_torch.core.api import FppsICP
-from repro_torch.core.engine import (CallableEngine, KernelEngine,
-                                     RegistrationEngine, TorchEngine,
-                                     available_engines, get_engine,
-                                     register_engine)
+from repro_torch.core.engine import (CallableEngine, DistributedEngine,
+                                     KernelEngine, RegistrationEngine,
+                                     ShardedSlotEngine, SlotEngine,
+                                     TorchEngine, available_engines,
+                                     get_engine, register_engine)
 from repro_torch.core.health import (FAILED, OK, SUSPECT, HealthThresholds,
                                      RegistrationHealth, assess_registration,
                                      health_thresholds_from_reference,
@@ -15,8 +17,8 @@ from repro_torch.core.health import (FAILED, OK, SUSPECT, HealthThresholds,
                                      plane_normal_matrix, pose_jump)
 from repro_torch.core.icp import (ICPParams, ICPResult, ICPState, icp,
                                   icp_batch, icp_fixed_iterations,
-                                  params_from_reference, result_to_numpy,
-                                  scrub_nonfinite)
+                                  icp_lockstep, params_from_reference,
+                                  result_to_numpy, scrub_nonfinite)
 from repro_torch.core.nn_search import nn_search
 from repro_torch.core.nn_search_grid import GridQueryStats
 from repro_torch.core.odometry import (KIND_BOOTSTRAP, KIND_EMPTY,
@@ -32,10 +34,11 @@ from repro_torch.core.transform import (estimate_rigid_transform,
 from repro_torch.data.voxelize import build_voxel_grid, voxel_downsample
 
 __all__ = [
-    "FppsICP", "CallableEngine", "KernelEngine", "RegistrationEngine",
-    "TorchEngine", "available_engines", "get_engine", "register_engine",
+    "FppsICP", "CallableEngine", "DistributedEngine", "KernelEngine",
+    "RegistrationEngine", "ShardedSlotEngine", "SlotEngine", "TorchEngine",
+    "available_engines", "get_engine", "register_engine",
     "ICPParams", "ICPResult", "ICPState", "icp", "icp_batch",
-    "icp_fixed_iterations", "params_from_reference", "result_to_numpy",
+    "icp_fixed_iterations", "icp_lockstep", "params_from_reference", "result_to_numpy",
     "scrub_nonfinite", "nn_search", "GridQueryStats", "PyramidEngine",
     "icp_pyramid", "polish_stats", "build_voxel_grid", "voxel_downsample",
     "estimate_rigid_transform", "make_transform", "transform_points",

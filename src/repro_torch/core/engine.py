@@ -18,6 +18,11 @@ the ``register`` API:
     the moment kernel);
   * ``"slots"`` (:class:`SlotEngine`): the ``"cuda"`` engine at a fixed
     lane width, behind the multi-stream registration service;
+  * ``"sharded-slots"`` (:class:`ShardedSlotEngine`): the slot engine's
+    program on each block of a ``("streams",)`` device mesh
+    (``core.distributed``), behind the service's sharded mode;
+  * ``"distributed"`` (:class:`DistributedEngine`): the legacy point-sharded
+    fleet mode, frames over ``"data"`` and each target over ``"model"``;
   * a user callable ``nn_fn(src, dst) -> (d2, idx)`` (:class:`CallableEngine`).
 
 Every engine has a device, ``"cuda"`` unless the caller passes
@@ -28,9 +33,7 @@ collates variable-size pairs first.
 
 The reference's jit caches and their trace counters
 (``RegistrationEngine.trace_count``/``traces``) have no counterpart: PyTorch
-runs eagerly and compiles nothing per shape. The ``distributed`` and
-``sharded-slots`` engines are not ported yet; asking for them raises
-``NotImplementedError`` naming their slice.
+runs eagerly and compiles nothing per shape.
 
 Typical use::
 
@@ -42,11 +45,14 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
+from repro_torch.core import distributed as dist
 from repro_torch.core.icp import (ICPParams, ICPResult,
                                   _auto_target_normals, icp, icp_batch,
                                   scrub_nonfinite)
+from repro_torch.core.transform import transform_points
 from repro_torch.data.collate import PAD_SENTINEL, bucket_size, collate_pairs
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build
@@ -274,6 +280,140 @@ class SlotEngine(KernelEngine):
         return ICPResult(*(x[0] for x in res))
 
 
+class ShardedSlotEngine(SlotEngine):
+    """Device-parallel slot engine: the ``"slots"`` program on every block
+    of a 1-D ``("streams",)`` mesh (``core.distributed.stream_sharded_icp``).
+
+    The fleet width is ``devices * lanes_per_device``; each device runs the
+    slot engine's per-call program (scrub, mask, the target augmented once,
+    the stop-early loop) over its own ``lanes_per_device`` lanes, with no
+    cross-device traffic, the blocks in lockstep. The block program is
+    fixed by ``lanes_per_device`` alone, so a lane's result has the same
+    bits for any number of blocks at equal block width, and at D=1 it is
+    the ``"slots"`` engine's at ``slots=lanes_per_device`` (the same calls
+    on the same shapes). Across widths the agreement is float tolerance.
+
+    ``devices`` is an int (0: every card, or one block on the CPU; the
+    first D cards when ``device`` is CUDA, D blocks on the CPU when it is
+    the CPU) or an explicit tuple of devices, repeats allowed, which then
+    decides alone. Both stay hashable, so ``get_engine`` shares the
+    engine. ``register`` embeds a single pair at lane 0 of the S-lane
+    sharded batch (inherited from :class:`SlotEngine`), so a standalone
+    ``OdometryPipeline`` on this engine is the sharded service's bit-exact
+    reference. ``register_batch`` returns the fleet's result on the mesh's
+    first device; :meth:`register_blocks` takes and returns per-block
+    tensors, each on its device.
+    """
+
+    name = "sharded-slots"
+
+    def __init__(self, chunk: int = 2048, lanes_per_device: int = 2,
+                 devices=0, device="cuda"):
+        blocks = dist.fleet_devices(devices, device)
+        self.lanes_per_device = int(lanes_per_device)
+        self.devices = len(blocks)
+        super().__init__(chunk, slots=self.devices * self.lanes_per_device,
+                         device=blocks[0])
+        self._mesh = dist.streams_mesh(blocks)
+
+    @property
+    def mesh(self) -> dist.Mesh:
+        """The ``("streams",)`` mesh the fleet is sharded over."""
+        return self._mesh
+
+    def place(self, x, dtype=None) -> list[torch.Tensor]:
+        """An ``(S, ...)`` fleet tensor as its lane blocks, each on its
+        device (the reference's ``sharding()`` placement)."""
+        return dist.split_lanes(self._mesh, x, dtype)
+
+    def register_blocks(self, src_blocks, dst_blocks,
+                        params: ICPParams | None = None, *,
+                        initial_transforms, src_valid,
+                        dst_valid) -> list[ICPResult]:
+        """The fleet registration on already placed lane blocks (lists of
+        ``(L, ...)`` tensors, one a mesh device); one result per block."""
+        return dist.stream_sharded_blocks(
+            self._mesh, src_blocks, dst_blocks, self._default_params(params),
+            initial_transforms=initial_transforms, src_valid=src_valid,
+            dst_valid=dst_valid, prepare=self._prepare)
+
+    def _register_batch(self, src, dst, params, T0, sv, dv) -> ICPResult:
+        return dist.stream_sharded_icp(self._mesh, src, dst, params,
+                                       initial_transforms=T0, src_valid=sv,
+                                       dst_valid=dv, prepare=self._prepare)
+
+
+class DistributedEngine(RegistrationEngine):
+    """Fleet-mode engine: frames split over ``"data"``, each target over
+    ``"model"`` (``core.distributed.batched_icp_sharded``, the legacy
+    point-sharded path), on a ``(n, 1)`` ``("data", "model")`` mesh over
+    the local cards (one CPU device on the CPU) or a caller's mesh.
+
+    As in the reference: both clouds are scrubbed first; the frame count
+    is padded to a multiple of the data extent by repeating frame 0 and
+    the result sliced back; the plane minimiser's normals are estimated on
+    the unsharded targets with their true valid mask, before masked target
+    rows move to the far sentinel; a warm start pre-transforms the sources
+    and is composed into the result; a single pair runs as a batch of one.
+    Results lie on the mesh's first device.
+    """
+
+    name = "distributed"
+
+    def __init__(self, chunk: int = 2048, mesh: dist.Mesh | None = None,
+                 frame_axes=("data",), target_axes=("model",),
+                 device="cuda"):
+        if mesh is None:
+            devs = dist.fleet_devices(0, device)
+            mesh = dist.Mesh(np.array(devs, dtype=object).reshape(-1, 1),
+                             ("data", "model"))
+        super().__init__(chunk, device=mesh.devices.flat[0])
+        self._mesh = mesh
+        self._frame_axes = tuple(frame_axes)
+        self._target_axes = tuple(target_axes)
+
+    @property
+    def mesh(self) -> dist.Mesh:
+        return self._mesh
+
+    def _register_batch(self, src, dst, params, T0, sv, dv) -> ICPResult:
+        src, sv = scrub_nonfinite(src, sv)
+        dst, dv = scrub_nonfinite(dst, dv)
+        frame_div = int(np.prod([self._mesh.shape[ax]
+                                 for ax in self._frame_axes]))
+        b = src.shape[0]
+        pad = (-b) % frame_div
+
+        def rep(x):
+            if x is None or pad == 0:
+                return x
+            return torch.cat([x, x[:1].expand((pad,) + x.shape[1:])])
+
+        src, dst, T0, sv, dv = map(rep, (src, dst, T0, sv, dv))
+        normals = None
+        if params.minimizer == "point_to_plane":
+            normals = _auto_target_normals(
+                dst, torch.ones(dst.shape[:2], dtype=torch.bool,
+                                device=dst.device) if dv is None else dv)
+        dst = _mask_invalid(dst, dv)
+        if T0 is not None:
+            src = transform_points(T0, src)
+        res = dist.batched_icp_sharded(
+            self._mesh, src, dst, params, frame_axes=self._frame_axes,
+            target_axes=self._target_axes, src_valid=sv, dst_normals=normals)
+        if T0 is not None:
+            res = res._replace(T=res.T @ T0.to(res.T.device))
+        if pad:
+            res = ICPResult(*(x[:b] for x in res))
+        return res
+
+    def _register(self, src, dst, params, T0, sv, dv) -> ICPResult:
+        res = self._register_batch(
+            src[None], dst[None], params, None if T0 is None else T0[None],
+            None if sv is None else sv[None], None if dv is None else dv[None])
+        return ICPResult(*(x[0] for x in res))
+
+
 class CallableEngine(RegistrationEngine):
     """Adapter for a user ``nn_fn(src, dst) -> (d2, idx)`` over batched
     (..., N, 3)/(..., M, 3) clouds."""
@@ -291,11 +431,6 @@ class CallableEngine(RegistrationEngine):
 # -- registry ---------------------------------------------------------------
 _ENGINES: dict[str, Callable[..., RegistrationEngine]] = {}
 _SHARED: dict = {}  # (name, device, sorted kwargs) -> engine instance
-# Reference engines that later slices port (ROADMAP queue 1).
-_NOT_PORTED = {
-    "distributed": "slice 6 (ROADMAP queue 1, item 6)",
-    "sharded-slots": "slice 6 (ROADMAP queue 1, item 6)",
-}
 
 
 def register_engine(name: str, factory: Callable[..., RegistrationEngine]):
@@ -321,9 +456,6 @@ def get_engine(spec, device="cuda", **kwargs) -> RegistrationEngine:
     if isinstance(spec, RegistrationEngine):
         return spec
     if isinstance(spec, str):
-        if spec in _NOT_PORTED:
-            raise NotImplementedError(f"engine {spec!r} is not ported yet: "
-                                      f"{_NOT_PORTED[spec]}")
         if spec not in _ENGINES:
             raise ValueError(f"unknown engine {spec!r}; available: "
                              f"{available_engines()}")
@@ -345,6 +477,8 @@ def get_engine(spec, device="cuda", **kwargs) -> RegistrationEngine:
 register_engine("torch", TorchEngine)
 register_engine("cuda", KernelEngine)
 register_engine("slots", SlotEngine)
+register_engine("sharded-slots", ShardedSlotEngine)
+register_engine("distributed", DistributedEngine)
 
 # Imported for its side effect: registers the "pyramid" engine. It lives in
 # its own module (the voxel and grid stack); importing it last keeps the

@@ -15,7 +15,10 @@ less than epsilon is frozen: its state no longer changes.
     sync per iteration (the reference's while loop);
   * :func:`icp_fixed_iterations` and :func:`icp_batch` always run
     ``max_iterations`` with the freeze mask and no host sync (the
-    reference's scan and its vmap).
+    reference's scan and its vmap);
+  * :func:`icp_lockstep` steps several such calls together, one a device
+    block (``core.distributed``), with one host read of all their flags
+    an iteration.
 
 With ``ICPParams.fused`` the iteration body is one fused pass instead
 (``kernels.fused_icp``): ``fused_fn(src_t, src_valid)`` runs search, gate,
@@ -281,10 +284,11 @@ def _select(active: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
     return torch.where(mask, new, old)
 
 
-def _run(source, target, params: ICPParams, initial_transform, nn_fn,
-         correspond_fn, src_valid, dst_valid, target_normals, fused_fn,
-         stop_early: bool) -> ICPResult:
-    _check_params(params)
+def _prepare_run(params: ICPParams, source, target, initial_transform=None,
+                 nn_fn=None, correspond_fn=None, src_valid=None,
+                 dst_valid=None, target_normals=None, fused_fn=None):
+    """One call's iteration ``step(state) -> state`` and its initial
+    state."""
     source, src_valid = scrub_nonfinite(source, src_valid)
     target, dst_valid = scrub_nonfinite(target, dst_valid)
     if params.fused:
@@ -317,17 +321,70 @@ def _run(source, target, params: ICPParams, initial_transform, nn_fn,
                      inlier_frac=torch.zeros(lead, dtype=dtype, device=dev),
                      degenerate=torch.zeros(lead, dtype=torch.bool,
                                             device=dev))
+    return step, state
+
+
+def _any_on_host(flags: list[torch.Tensor]) -> list[bool]:
+    """``bool(f.any())`` of every tensor in one device-to-host read (the
+    flags are gathered on the first one's device)."""
+    if len(flags) == 1:
+        return [bool(flags[0].any())]
+    home = flags[0].device
+    return torch.stack([f.any().to(home) for f in flags]).tolist()
+
+
+def _lockstep(runs: list, params: ICPParams, stop_early: bool) -> list:
+    """Iterate the ``(step, state)`` pairs of :func:`_prepare_run` together:
+    each iteration issues the step of every block with an active lane, then
+    (``stop_early``) reads all blocks' active flags in one host sync. A
+    block with no active lane is not stepped again, so each block's result
+    is the one it gets alone; for one block this is the plain loop."""
     eps = params.transformation_epsilon
+    steps = [step for step, _ in runs]
+    states = [state for _, state in runs]
+    live = list(range(len(runs)))
     for _ in range(params.max_iterations):
-        active = state.delta > eps
-        if stop_early and not bool(active.any()):
-            break
-        new = step(state)
-        state = ICPState(*(_select(active, n, o) for n, o in zip(new, state)))
-    converged = (state.delta <= eps) & ~state.degenerate
-    return ICPResult(T=state.T, rmse=state.rmse, iterations=state.iteration,
-                     converged=converged, inlier_frac=state.inlier_frac,
-                     degenerate=state.degenerate)
+        active = {b: states[b].delta > eps for b in live}
+        if stop_early:
+            flags = _any_on_host([active[b] for b in live])
+            live = [b for b, f in zip(live, flags) if f]
+            if not live:
+                break
+        for b in live:
+            new = steps[b](states[b])
+            states[b] = ICPState(*(_select(active[b], n, o)
+                                   for n, o in zip(new, states[b])))
+    return [ICPResult(T=s.T, rmse=s.rmse, iterations=s.iteration,
+                      converged=(s.delta <= eps) & ~s.degenerate,
+                      inlier_frac=s.inlier_frac, degenerate=s.degenerate)
+            for s in states]
+
+
+def _run(source, target, params: ICPParams, initial_transform, nn_fn,
+         correspond_fn, src_valid, dst_valid, target_normals, fused_fn,
+         stop_early: bool) -> ICPResult:
+    _check_params(params)
+    run = _prepare_run(params, source, target, initial_transform, nn_fn,
+                       correspond_fn, src_valid, dst_valid, target_normals,
+                       fused_fn)
+    return _lockstep([run], params, stop_early)[0]
+
+
+def icp_lockstep(calls: list[dict], params: ICPParams = ICPParams(),
+                 stop_early: bool = True) -> list[ICPResult]:
+    """Several independent registrations stepped together, each on its own
+    device: ``calls`` holds one dict of :func:`icp`'s keyword arguments
+    (``source``, ``target``, ``initial_transform``, ``nn_fn``,
+    ``correspond_fn``, ``src_valid``, ``dst_valid``, ``target_normals``,
+    ``fused_fn``) per block. Every iteration launches each still-active
+    block's step before the one host read of all blocks' flags, so blocks
+    on different cards run at once; a block whose lanes have all stopped is
+    not stepped again. Each result is the bits :func:`icp` (or, with
+    ``stop_early=False``, :func:`icp_fixed_iterations`) gives that block
+    alone."""
+    _check_params(params)
+    runs = [_prepare_run(params, **call) for call in calls]
+    return _lockstep(runs, params, stop_early)
 
 
 def icp(source: torch.Tensor, target: torch.Tensor | None,

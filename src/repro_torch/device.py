@@ -20,13 +20,20 @@ def resolve_device(device: str | torch.device | None = DEFAULT_DEVICE
     """``device`` (default ``"cuda"``) as a ``torch.device``.
 
     Raises ``RuntimeError`` when a CUDA device is asked for and PyTorch
-    sees none; tests and CPU users pass ``device="cpu"`` explicitly.
+    sees none, and ``ValueError`` when its index is beyond
+    ``torch.cuda.device_count()``; tests and CPU users pass
+    ``device="cpu"`` explicitly.
     """
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda" and dev.index is not None:
+        count = torch.cuda.device_count()
+        if dev.index >= count:
+            raise ValueError(f"device {str(dev)!r} requested but this "
+                             f"machine has {count} CUDA device(s)")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or "
                          "'cpu'")

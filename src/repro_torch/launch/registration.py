@@ -33,8 +33,9 @@ Engines: ``cuda`` (default; the brute-force NN kernel), ``pyramid``
 them (``xla`` -> ``torch``, ``pallas`` -> ``cuda``), so ``--engine xla``
 runs the plain PyTorch search, on the card too. The reference's default,
 ``xla``, is its compiled brute force on the accelerator, whose
-counterpart on the card is the kernel, hence the default ``cuda``. ``distributed`` is
-not ported yet (slice 6). Everything runs on ``--device`` (default
+counterpart on the card is the kernel, hence the default ``cuda``.
+``distributed`` is the legacy point-sharded fleet engine over the local
+cards (``core.distributed``). Everything runs on ``--device`` (default
 ``cuda``; raises without a card), and ``serve`` always runs on the slot
 engine (``--engine`` is ignored there).
 """
@@ -201,7 +202,9 @@ def main(argv=None):
                          "coarse-to-fine with the grid sweep kernel; torch: "
                          "plain PyTorch; xla/pallas: the reference's names, "
                          "run as torch/cuda (xla is the plain PyTorch search "
-                         "on the card too); distributed: not ported yet")
+                         "on the card too); distributed: frames over "
+                         "the local cards, each target split over the "
+                         "'model' axis (core.distributed)")
     ap.add_argument("--device", default="cuda",
                     help="device of every tensor (default cuda; raises "
                          "without a card); cpu runs the plain versions")
@@ -241,9 +244,6 @@ def main(argv=None):
                     help="smaller synthetic scenes (fast CI)")
     args = ap.parse_args(argv)
     args.engine = ENGINE_ALIASES.get(args.engine, args.engine)
-    if args.engine == "distributed":
-        raise NotImplementedError("engine 'distributed' is not ported yet: "
-                                  "slice 6 (ROADMAP queue 1, item 6)")
     args.device = resolve_device(args.device)
 
     cfg = (SceneConfig(n_ground=9000, n_walls=6000, n_poles=1800,

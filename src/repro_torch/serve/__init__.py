@@ -1,5 +1,5 @@
 """Serving layer of the port: the multi-stream registration service
-(``registration_service``), single-device."""
+(``registration_service``), on one device or sharded over several."""
 from repro_torch.serve.registration_service import (
     RegistrationService, ServiceConfig, StreamReport,
     service_config_from_reference)

@@ -1,6 +1,6 @@
 """Multi-stream registration service: N odometry streams through S fixed
-slots, one batched round per frame wave (port of the single-device half of
-``repro.serve.registration_service``).
+slots, one batched round per frame wave, optionally sharded over a device
+mesh (port of ``repro.serve.registration_service``).
 
 The paper's headline number is a *runtime-weighted* speedup across a
 workload mix (§IV), a shared-accelerator framing. This module is that layer
@@ -14,34 +14,54 @@ accept/quarantine bookkeeping) stays on the host per stream, reusing
 service inherits every robustness behaviour of the odometry path without
 forking the policy code.
 
+**Sharded mode** (``ServiceConfig.devices=D``): the round runs over a 1-D
+``("streams",)`` mesh of D devices (``core.distributed``), one Python
+process driving them all. Each device owns a contiguous block of ``slots /
+D`` lanes and their resident submaps: the fleet's map state lives on the
+devices as one ``(L, ...)`` state tuple per block (``data.submap``) instead
+of per-stream objects, and prepare, registration
+(``ShardedSlotEngine.register_blocks``, the blocks in lockstep), lattice
+probe and fuse run block by block with no cross-device traffic. A round
+makes one host-to-device copy per block of the staged scans, one bulk
+fetch of the registrations and probes, and one of the fuse's occupancy.
+The host control plane is unchanged: each stream's pipeline sees its lane
+through a :class:`_LaneSubmap` view. Admission picks the least-loaded
+block, and a retired slot's lane is reset in place, so churn never changes
+a shape and never leaks a predecessor's map. The devices may repeat
+(``device=["cuda:0", "cuda:0"]``): D blocks then share one card, which is
+how one card runs the sharded program.
+
 Every tensor of a round has a fixed shape: ``(slots, scan_capacity, 3)``
 staged scans, ``(slots, scan_budget, 3)`` downsampled sources, ``(slots,
-capacity, 3)`` map targets. Idle or non-registering lanes ride along with
-all-False validity masks (they freeze as degenerate after one ICP
-iteration). Admitting a stream, retiring one, or dropping frames under
-backpressure therefore never changes a shape. The reference proves that by
-its jit trace count; the eager port counts the distinct batch shapes the
-service's rounds registered (``service_report()["batch_shapes"]``),
-constant after the first round.
+capacity, 3)`` map targets (in blocks of ``slots / D`` lanes when sharded).
+Idle or non-registering lanes ride along with all-False validity masks
+(they freeze as degenerate after one ICP iteration). Admitting a stream,
+retiring one, or dropping frames under backpressure therefore never changes
+a shape. The reference proves that by its jit trace count; the eager port
+counts the distinct batch shapes the service's rounds registered
+(``service_report()["batch_shapes"]``), constant after the first round.
 
 Bit-exactness contract: a standalone ``OdometryPipeline`` built from
 :attr:`RegistrationService.stream_config` and fed the same (staged) frames
 produces bit-identical poses and diagnostics. Its single-frame registration
 embeds into the same S-lane batch (``SlotEngine.register``); its prepare,
 lattice probe and fuse are the one-lane forms of the service's batched
-stages, each a function of its own lane only.
-
-The sharded mode (``ServiceConfig.devices``) is not ported yet: it is
-slice 6 (ROADMAP queue 1, item 6), and asking for it raises.
+stages, each a function of its own lane only. Sharded, the contract extends
+across mesh sizes at equal block width: the per-device program is fixed by
+``slots / devices`` alone, so a D-block fleet gives each stream the bits of
+a one-block fleet of the same width, and a one-block fleet those of the
+single-device service at ``slots = slots / devices``. Across block widths
+the agreement is float tolerance.
 
 Typical use::
 
     svc = RegistrationService(ServiceConfig(slots=8), device="cuda")
+    svc = RegistrationService(ServiceConfig(slots=16, devices=8))
     for vid in vehicle_ids:
         svc.admit(vid)
     while streaming:
         for vid, scan in poll_sensors():
-            svc.submit(vid, scan)            # staged on the device
+            svc.submit(vid, scan)            # staged
         for vid, (pose, diag) in svc.step().items():
             publish(vid, pose, diag)
 """
@@ -53,6 +73,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import fleet_devices
 from repro_torch.core.engine import get_engine
 from repro_torch.core.health import host_result
 from repro_torch.core.icp import ICPResult, scrub_nonfinite
@@ -68,25 +89,7 @@ from repro_torch.data.voxelize import voxel_downsample
 from repro_torch.device import resolve_device
 
 
-def _single_device(devices) -> None:
-    """Raise for the reference's sharded mode, which is not ported yet."""
-    if devices is not None:
-        raise NotImplementedError("the sharded service "
-                                  "(ServiceConfig.devices) is not ported "
-                                  "yet: slice 6 (ROADMAP queue 1, item 6)")
-
-
-class _ServiceFields(NamedTuple):
-    slots: int = 8
-    scan_capacity: int = 4096
-    max_queue: int = 4
-    drop_policy: str = "oldest"
-    admission: str = "queue"
-    odometry: OdometryConfig = OdometryConfig()
-    devices: int | None = None
-
-
-class ServiceConfig(_ServiceFields):
+class ServiceConfig(NamedTuple):
     """Service-level configuration on top of a shared per-stream
     :class:`~repro_torch.core.odometry.OdometryConfig`; the reference's
     fields and defaults.
@@ -101,16 +104,18 @@ class ServiceConfig(_ServiceFields):
     submission. All streams share one odometry config: one ``ICPParams``
     and one shape family for the whole fleet.
 
-    ``devices`` is the reference's sharded mode. Only ``None`` (one device)
-    is ported; anything else raises ``NotImplementedError``.
+    ``devices`` switches the service to sharded mode (module docstring): D
+    device blocks of ``slots / devices`` lanes each and their resident
+    submaps. ``None`` (default) is the single-device service.
     """
 
-    __slots__ = ()
-
-    def __new__(cls, *args, **kwargs):
-        self = super().__new__(cls, *args, **kwargs)
-        _single_device(self.devices)
-        return self
+    slots: int = 8
+    scan_capacity: int = 4096
+    max_queue: int = 4
+    drop_policy: str = "oldest"
+    admission: str = "queue"
+    odometry: OdometryConfig = OdometryConfig()
+    devices: int | None = None
 
 
 def service_config_from_reference(d: dict) -> ServiceConfig:
@@ -148,10 +153,11 @@ class StreamReport(NamedTuple):
 
 
 class _StagedFrame(NamedTuple):
-    # staged scan padded to (scan_capacity, 3) and its mask, on the
-    # service's device
-    pts: torch.Tensor
-    valid: torch.Tensor
+    # staged scan padded to (scan_capacity, 3) and its mask: on the
+    # service's device in single-device mode, on the host in sharded mode
+    # (a round then copies each block's lanes to its device at once)
+    pts: object
+    valid: object
     seq: int
 
 
@@ -166,6 +172,71 @@ class _Stream:
         self.submitted = 0
         self.dropped = 0
         self.cascade_escapes = 0
+
+
+class _LaneSubmap:
+    """Submap view of one lane of the sharded fleet state.
+
+    The host control plane (cascade tiers, lattice probes, occupancy
+    diagnostics) reads a stream's map through the attributes of
+    :class:`~repro_torch.data.submap.Submap`; this view resolves them
+    against the service's per-block ``(L, ...)`` state at the stream's
+    *current* slot. Occupancy and the sticky ``dropped_cells`` counter are
+    host caches updated from each batched fuse, so control-plane reads
+    cost no device fetch. Every write goes through the service's batched
+    fuse: ``insert`` is a usage error here."""
+
+    def __init__(self, svc: "RegistrationService", stream: "_Stream"):
+        self._svc = svc
+        self._stream = stream
+        self.params: SubmapParams = svc.stream_config.submap
+        self.frames_inserted = 0
+        self.dropped_cells = 0
+        self._occupied = 0
+
+    @property
+    def state(self) -> tuple:
+        """The lane's state tuple (views into its block's state)."""
+        lane = self._stream.slot
+        if lane is None:
+            raise RuntimeError(f"stream {self._stream.id!r} has no slot "
+                               f"bound; its lane state does not exist yet")
+        block, k = divmod(lane, self._svc._lanes)
+        return tuple(leaf[k] for leaf in self._svc._fleet[block])
+
+    @property
+    def origin(self) -> torch.Tensor:
+        return self.state[-1]
+
+    @property
+    def points(self) -> torch.Tensor:
+        return state_views(self.state, self.params)[0]
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return state_views(self.state, self.params)[1]
+
+    def target(self):
+        pts, valid, _ = state_views(self.state, self.params)
+        return pts, valid
+
+    @property
+    def size(self) -> int:
+        return self._occupied
+
+    def occupancy(self) -> float:
+        return self._occupied / int(self.params.capacity)
+
+    def insert(self, *args, **kwargs):
+        raise RuntimeError("sharded service submaps are fused in the "
+                           "batched fleet round, never inserted per stream")
+
+
+def _fetch(blocks, home: torch.device) -> tuple:
+    """Per-block tuples of tensors, concatenated field by field on ``home``
+    and fetched to the host in one copy (``core.health.host_result``)."""
+    return host_result(tuple(torch.cat([x.to(home) for x in leaves])
+                             for leaves in zip(*blocks)))
 
 
 # -- the round's batched stages ----------------------------------------------
@@ -204,33 +275,71 @@ def _fuse_batch(state_b, src_b, sv_b, pose_b, accept_b,
 class RegistrationService:
     """Continuous-batching front end over the odometry stack: admit streams
     into slots, stage frames, and run the whole fleet's round as one
-    batched step (see the module docstring for the lifecycle).
+    batched step (see the module docstring for the lifecycle and the
+    sharded mode).
 
     The service is single-threaded and deterministic: ``step()`` pops at
     most one staged frame per active stream in slot order, so identical
-    submission sequences produce identical outputs, drops included. All its
+    submission sequences produce identical outputs, drops included. Its
     tensors live on ``device`` (``"cuda"`` unless the caller passes
-    ``"cpu"``; asking for CUDA without it raises).
+    ``"cpu"``; asking for CUDA without it raises). Sharded, ``device`` is
+    one device, whose D blocks are then the first D cards (or D blocks on
+    the CPU), or an explicit list of D devices, which may repeat.
     """
 
     def __init__(self, config: ServiceConfig = ServiceConfig(),
                  device="cuda"):
-        _single_device(config.devices)  # _replace() skips __new__
         if config.drop_policy not in ("oldest", "newest"):
             raise ValueError(f"drop_policy must be 'oldest' or 'newest', "
                              f"got {config.drop_policy!r}")
         if config.admission not in ("queue", "reject"):
             raise ValueError(f"admission must be 'queue' or 'reject', "
                              f"got {config.admission!r}")
-        self.device = dev = resolve_device(device)
         cap = bucket_size(config.scan_capacity)
         self.config = config._replace(scan_capacity=cap)
-        self.engine = get_engine("slots", device=dev, slots=config.slots)
-        # idle-lane fillers: a staged scan and a map, on the device
-        self._idle_pts = torch.full((cap, 3), PAD_SENTINEL,
-                                    dtype=torch.float32, device=dev)
-        self._idle_valid = torch.zeros((cap,), dtype=torch.bool, device=dev)
-        self._idle_state = empty_state(self.stream_config.submap, dev)
+        self._sharded = config.devices is not None
+        explicit = isinstance(device, (list, tuple))
+        sp = config.odometry.submap
+        if self._sharded:
+            D = int(config.devices)
+            if D < 1:
+                raise ValueError(f"devices must be >= 1, got {D}")
+            if config.slots % D:
+                raise ValueError(f"slots={config.slots} must divide evenly "
+                                 f"over devices={D}")
+            if explicit and len(device) != D:
+                raise ValueError(f"{len(device)} devices given for "
+                                 f"devices={D}")
+            self._blocks = (fleet_devices(device) if explicit
+                            else fleet_devices(D, device))
+            # the standalone pipeline's engine key: hashable either way
+            self._devices_key = (tuple(str(d) for d in self._blocks)
+                                 if explicit else D)
+            self._lanes = config.slots // D
+            self.device = dev = self._blocks[0]
+            self.engine = get_engine(
+                "sharded-slots", device=dev,
+                lanes_per_device=self._lanes, devices=self._devices_key)
+            # each block's lanes' resident submaps, for the service's life
+            self._fleet = [empty_state(sp, d, batch=(self._lanes,))
+                           for d in self._blocks]
+            # host-side idle-lane fillers (one copy per block a round)
+            self._idle_pts = np.full((cap, 3), PAD_SENTINEL, np.float32)
+            self._idle_valid = np.zeros((cap,), bool)
+        else:
+            if explicit:
+                raise ValueError("a device list needs ServiceConfig.devices "
+                                 "(the sharded mode)")
+            self.device = dev = resolve_device(device)
+            self._blocks = [dev]
+            self._lanes = config.slots
+            self.engine = get_engine("slots", device=dev, slots=config.slots)
+            # idle-lane fillers: a staged scan and a map, on the device
+            self._idle_pts = torch.full((cap, 3), PAD_SENTINEL,
+                                        dtype=torch.float32, device=dev)
+            self._idle_valid = torch.zeros((cap,), dtype=torch.bool,
+                                           device=dev)
+            self._idle_state = empty_state(sp, dev)
         self._streams: dict[str, _Stream] = {}
         self._slots: list[str | None] = [None] * config.slots
         self._pending: deque[str] = deque()
@@ -244,17 +353,42 @@ class RegistrationService:
 
     @property
     def stream_config(self) -> OdometryConfig:
-        """The per-stream odometry config, on the shared slot engine. A
-        standalone ``OdometryPipeline(stream_config)`` on the service's
-        device is the service's bit-exact single-stream reference."""
+        """The per-stream odometry config, on the shared slot engine
+        (sharded or not). A standalone ``OdometryPipeline(stream_config)``
+        on the service's device is the service's bit-exact single-stream
+        reference in either mode."""
+        if self._sharded:
+            return self.config.odometry._replace(
+                engine="sharded-slots",
+                engine_kwargs=(("lanes_per_device", self._lanes),
+                               ("devices", self._devices_key)))
         return self.config.odometry._replace(
             engine="slots", engine_kwargs=(("slots", self.config.slots),))
 
     # -- admission ---------------------------------------------------------
     def _free_lane(self) -> int | None:
-        """The slot a new stream binds: the first free one."""
-        return next((i for i, s in enumerate(self._slots) if s is None),
-                    None)
+        """The slot a new stream binds: the first free lane of the
+        least-loaded block (ties to the lower device), so live streams
+        spread over the mesh; with one block, the first free slot."""
+        L = self._lanes
+        best = None
+        for d in range(len(self._blocks)):
+            block = self._slots[d * L:(d + 1) * L]
+            free = next((d * L + i for i, s in enumerate(block)
+                         if s is None), None)
+            if free is None:
+                continue
+            load = sum(1 for s in block if s is not None)
+            if best is None or load < best[0]:
+                best = (load, free)
+        return None if best is None else best[1]
+
+    def _bind(self, stream: _Stream, lane: int) -> None:
+        """Bind ``stream`` to ``lane``; its pipeline's retry tiers then run
+        on the lane's block device."""
+        self._slots[lane] = stream.id
+        stream.slot = lane
+        stream.pipe.device = self._blocks[lane // self._lanes]
 
     def admit(self, stream_id: str) -> bool:
         """Admit a new stream. Returns True if a slot was bound now, False
@@ -265,8 +399,9 @@ class RegistrationService:
         if stream_id in self._streams:
             raise ValueError(f"stream {stream_id!r} already admitted")
         stream = _Stream(stream_id)
-        stream.pipe = OdometryPipeline(self.stream_config,
-                                       device=self.device)
+        stream.pipe = OdometryPipeline(
+            self.stream_config, device=self.device,
+            submap=_LaneSubmap(self, stream) if self._sharded else None)
         lane = self._free_lane()
         if lane is None:
             if self.config.admission == "reject":
@@ -277,27 +412,34 @@ class RegistrationService:
             self._pending.append(stream_id)
             return False
         self._streams[stream_id] = stream
-        self._slots[lane] = stream_id
-        stream.slot = lane
+        self._bind(stream, lane)
         return True
 
     def close(self, stream_id: str) -> StreamReport:
         """Retire a stream: free its slot (rebinding the oldest pending
         stream, if any), drop its state, and return the final
         :class:`StreamReport`. Unstepped staged frames are discarded
-        (counted as dropped). A stream's map lives in its own pipeline, so
-        the next stream bound to the slot starts from an empty map."""
+        (counted as dropped). A single-device stream's map lives in its own
+        pipeline; in sharded mode the lane's resident map is reset to idle
+        in place, on its block. Either way the next stream bound to the
+        slot starts from an empty map."""
         stream = self._streams.pop(stream_id)
         stream.dropped += len(stream.queue)
         self.frames_dropped += len(stream.queue)
         report = self._report(stream)
-        if stream.slot is not None:
-            self._slots[stream.slot] = None
+        lane = stream.slot
+        if lane is not None:
+            if self._sharded:
+                block, k = divmod(lane, self._lanes)
+                idle = empty_state(self.stream_config.submap,
+                                   self._blocks[block])
+                for leaf, idle_leaf in zip(self._fleet[block], idle):
+                    leaf[k] = idle_leaf
+            self._slots[lane] = None
             while self._pending:
                 nxt = self._pending.popleft()
                 if nxt in self._streams:
-                    self._slots[stream.slot] = nxt
-                    self._streams[nxt].slot = stream.slot
+                    self._bind(self._streams[nxt], lane)
                     break
         else:
             # stream was still pending; drop it from the wait queue lazily
@@ -325,17 +467,23 @@ class RegistrationService:
         return padded, pvalid
 
     def submit(self, stream_id: str, scan, valid=None) -> bool:
-        """Stage one sensor-frame scan for ``stream_id``: padded and copied
-        to the service's device now. Returns True if the frame is queued;
-        False if backpressure dropped it (``drop_policy="newest"``).
-        Dropping the *oldest* staged frame still returns True: the
-        submitted frame survived, an older one paid."""
+        """Stage one sensor-frame scan for ``stream_id``: padded, and copied
+        to the service's device now (single-device mode) or kept on the
+        host until the round copies each block's lanes to its device at
+        once (sharded mode). Returns True if the frame is queued; False if
+        backpressure dropped it (``drop_policy="newest"``). Dropping the
+        *oldest* staged frame still returns True: the submitted frame
+        survived, an older one paid."""
         stream = self._streams[stream_id]
         padded, pvalid = self.stage_scan(scan, valid)
-        staged = _StagedFrame(pts=torch.as_tensor(padded, device=self.device),
-                              valid=torch.as_tensor(pvalid,
-                                                    device=self.device),
-                              seq=stream.submitted)
+        if self._sharded:
+            staged = _StagedFrame(pts=padded, valid=pvalid,
+                                  seq=stream.submitted)
+        else:
+            staged = _StagedFrame(
+                pts=torch.as_tensor(padded, device=self.device),
+                valid=torch.as_tensor(pvalid, device=self.device),
+                seq=stream.submitted)
         stream.submitted += 1
         if len(stream.queue) >= self.config.max_queue:
             stream.dropped += 1
@@ -361,10 +509,12 @@ class RegistrationService:
         registration, the lattice probe, one bulk fetch), the per-stream
         completion on the host, then one batched fuse; return ``{stream_id:
         (pose, FrameDiagnostics)}`` for every frame processed this round.
-        Streams with empty queues idle in mask-dead lanes."""
+        Streams with empty queues idle in mask-dead lanes. In sharded mode
+        each data-plane stage runs block by block, each block on its
+        device; the structure is the same."""
         odo = self.stream_config
-        S = self.config.slots
-        dev = self.device
+        S, L = self.config.slots, self._lanes
+        sharded = self._sharded
         work = {}
         for lane, sid in enumerate(self._slots):
             if sid is None:
@@ -376,20 +526,33 @@ class RegistrationService:
             return {}
         self.rounds += 1
 
-        # 1. staged-scan stack -> batched scrub + downsample (data plane)
-        pts_b = torch.stack([work[i][1].pts if i in work else self._idle_pts
-                             for i in range(S)])
-        valid_b = torch.stack([work[i][1].valid if i in work
-                               else self._idle_valid for i in range(S)])
-        src_b, sv_b, nv_b = _prepare_batch(pts_b, valid_b, odo.scan_voxel,
-                                           odo.scan_budget)
-        n_valid = nv_b.cpu().numpy()
+        # 1. staged-scan stack -> batched scrub + downsample (data plane),
+        #    one (L, ...) block a device
+        if sharded:
+            place = self.engine.place
+            pts_blk = place(np.stack([work[i][1].pts if i in work
+                                      else self._idle_pts for i in range(S)]))
+            valid_blk = place(np.stack([work[i][1].valid if i in work
+                                        else self._idle_valid
+                                        for i in range(S)]))
+        else:
+            pts_blk = [torch.stack([work[i][1].pts if i in work
+                                    else self._idle_pts for i in range(S)])]
+            valid_blk = [torch.stack([work[i][1].valid if i in work
+                                      else self._idle_valid
+                                      for i in range(S)])]
+        prepared = [_prepare_batch(p, v, odo.scan_voxel, odo.scan_budget)
+                    for p, v in zip(pts_blk, valid_blk)]
+        src_blk = [p[0] for p in prepared]
+        sv_blk = [p[1] for p in prepared]
+        n_valid = _fetch([(p[2],) for p in prepared], self.device)[0]
 
         # 2. host classification: which lanes register this round
         preps = {}
         for lane, (stream, _) in work.items():
+            block, k = divmod(lane, L)
             preps[lane] = stream.pipe.prepare_frame(
-                None, downsampled=(src_b[lane], sv_b[lane],
+                None, downsampled=(src_blk[block][k], sv_blk[block][k],
                                    int(n_valid[lane])))
         reg_lanes = [lane for lane, p in preps.items()
                      if p.kind == KIND_REGISTER and not p.skip_primary]
@@ -397,28 +560,46 @@ class RegistrationService:
         res_host = lat_host = None
         if reg_lanes:
             # 3. one fleet registration through the slot engine
-            active = torch.zeros((S,), dtype=torch.bool)
+            active = np.zeros((S,), bool)
             active[reg_lanes] = True
-            active = active.to(dev)
-            idle = state_views(self._idle_state, odo.submap)
-            views = [state_views(work[i][0].pipe.submap.state, odo.submap)
-                     if i in work else idle for i in range(S)]
-            dst_b = torch.stack([v[0] for v in views])
-            dv_b = torch.stack([v[1] for v in views])
-            origin_b = torch.stack([v[2] for v in views])
-            T0_b = np.stack([preps[i].T0 if i in preps else self._eye
-                             for i in range(S)])
-            self._shapes.add((odo.params, S, src_b.shape[-2],
-                              dst_b.shape[-2]))
-            res = self.engine.register_batch(
-                src_b, dst_b, odo.params,
-                src_valid=sv_b & active[:, None],
-                dst_valid=dv_b & active[:, None],
-                initial_transforms=T0_b)
+            T0_np = np.stack([preps[i].T0 if i in preps else self._eye
+                              for i in range(S)])
+            if sharded:
+                views = [state_views(state, odo.submap)
+                         for state in self._fleet]
+                act_blk = place(active)
+                T0_blk = place(T0_np)
+            else:
+                idle = state_views(self._idle_state, odo.submap)
+                lanes = [state_views(work[i][0].pipe.submap.state,
+                                     odo.submap) if i in work else idle
+                         for i in range(S)]
+                views = [tuple(torch.stack([v[j] for v in lanes])
+                               for j in range(3))]
+                act_blk = [torch.as_tensor(active, device=self.device)]
+            self._shapes.add((odo.params, S, src_blk[0].shape[-2],
+                              views[0][0].shape[-2]))
+            if sharded:
+                res_blk = self.engine.register_blocks(
+                    src_blk, [v[0] for v in views], odo.params,
+                    initial_transforms=T0_blk,
+                    src_valid=[sv & a[:, None]
+                               for sv, a in zip(sv_blk, act_blk)],
+                    dst_valid=[v[1] & a[:, None]
+                               for v, a in zip(views, act_blk)])
+            else:
+                res_blk = [self.engine.register_batch(
+                    src_blk[0], views[0][0], odo.params,
+                    src_valid=sv_blk[0] & act_blk[0][:, None],
+                    dst_valid=views[0][1] & act_blk[0][:, None],
+                    initial_transforms=T0_np)]
             # 4. batched lattice probe + ONE bulk device-to-host fetch
-            lat_b = out_of_lattice_frac(res.T, src_b, sv_b, origin_b,
-                                        odo.submap)
-            fetched = host_result(tuple(res) + (lat_b,))
+            lat_blk = [out_of_lattice_frac(res.T, src, sv, v[2], odo.submap)
+                       for res, src, sv, v in zip(res_blk, src_blk, sv_blk,
+                                                  views)]
+            fetched = _fetch([tuple(res) + (lat,)
+                              for res, lat in zip(res_blk, lat_blk)],
+                             self.device)
             res_host, lat_host = ICPResult(*fetched[:-1]), fetched[-1]
 
         # 5. host control plane: per-stream completion (cascade, accept,
@@ -433,7 +614,8 @@ class RegistrationService:
             else:
                 lane_res, lat = None, None
             pose, diag, fuse_req = stream.pipe.complete_frame(
-                prep, lane_res, lattice_frac=lat, defer_fuse=True)
+                prep, lane_res, lattice_frac=lat, defer_fuse=True,
+                defer_bootstrap=sharded)
             if prep.kind == KIND_REGISTER and diag.recovery_tier > 0:
                 stream.cascade_escapes += 1
                 self.cascade_escapes += 1
@@ -444,24 +626,37 @@ class RegistrationService:
 
         # 6. one batched fuse over the fleet's submaps
         if fuse_reqs:
-            accept = torch.zeros((S,), dtype=torch.bool)
+            accept = np.zeros((S,), bool)
             accept[list(fuse_reqs)] = True
             pose_np = np.stack([fuse_reqs[i].pose if i in fuse_reqs
                                 else self._eye for i in range(S)])
-            state_b, occ_b, drop_b = _fuse_batch(
-                self._stack_states(work, S),
-                torch.stack([fuse_reqs[i].src if i in fuse_reqs
-                             else src_b[i] for i in range(S)]),
-                torch.stack([fuse_reqs[i].sv if i in fuse_reqs
-                             else sv_b[i] for i in range(S)]),
-                torch.as_tensor(pose_np, device=dev), accept.to(dev),
-                odo.submap)
-            occ, drop = torch.stack([occ_b, drop_b.to(occ_b.dtype)]).cpu()
+            if sharded:
+                # the fuse sources are this round's prepared blocks (every
+                # FuseRequest.src is its lane's slice of them)
+                fused = [_fuse_batch(state, src, sv, pose, acc, odo.submap)
+                         for state, src, sv, pose, acc in zip(
+                             self._fleet, src_blk, sv_blk, place(pose_np),
+                             place(accept))]
+                self._fleet = [f[0] for f in fused]
+                occ, drop = _fetch([f[1:] for f in fused], self.device)
+            else:
+                state_b, occ_b, drop_b = _fuse_batch(
+                    self._stack_states(work, S),
+                    torch.stack([fuse_reqs[i].src if i in fuse_reqs
+                                 else src_blk[0][i] for i in range(S)]),
+                    torch.stack([fuse_reqs[i].sv if i in fuse_reqs
+                                 else sv_blk[0][i] for i in range(S)]),
+                    torch.as_tensor(pose_np, device=self.device),
+                    torch.as_tensor(accept, device=self.device), odo.submap)
+                occ, drop = _fetch([(occ_b, drop_b)], self.device)
             mcap = int(odo.submap.capacity)
             for lane in fuse_reqs:
                 stream = work[lane][0]
                 sub = stream.pipe.submap
-                sub.state = tuple(leaf[lane] for leaf in state_b)
+                if sharded:
+                    sub._occupied = int(occ[lane])
+                else:
+                    sub.state = tuple(leaf[lane] for leaf in state_b)
                 sub.frames_inserted += 1
                 sub.dropped_cells += int(drop[lane])
                 pose, diag = outputs[stream.id]
@@ -473,11 +668,13 @@ class RegistrationService:
 
     def sync(self) -> None:
         """Block until every device computation the service queued (the
-        fuse's writes included) has finished. Outputs returned by ``step``
-        are already on the host; this exists for benchmarks that must charge
-        the fuse's tail to the round that issued it."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        fuse's writes included) has finished, on every block's device.
+        Outputs returned by ``step`` are already on the host; this exists
+        for benchmarks that must charge the fuse's tail to the round that
+        issued it."""
+        for dev in dict.fromkeys(self._blocks):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def drain(self, max_rounds: int | None = None) -> dict:
         """Step until every active stream's queue is empty (or
@@ -514,8 +711,9 @@ class RegistrationService:
 
     def service_report(self) -> dict:
         """Fleet-level counters: rounds run, frames processed/dropped,
-        cascade escapes, live/pending stream counts, the device count (1:
-        the sharded mode is not ported), and ``batch_shapes``, the number
+        cascade escapes, live/pending stream counts, the number of device
+        blocks the fleet is sharded over (1: single-device mode), and
+        ``batch_shapes``, the number
         of distinct (params, S, N, M) batches this service's rounds have
         registered (other users of the shared slot engine not counted). The
         reference reports its jit trace count here; an eager engine traces
@@ -528,7 +726,7 @@ class RegistrationService:
             "cascade_escapes": self.cascade_escapes,
             "active_streams": sum(1 for s in self._slots if s is not None),
             "pending_streams": len(self._pending),
-            "devices": 1,
+            "devices": len(self._blocks),
             "batch_shapes": len(self._shapes),
         }
 

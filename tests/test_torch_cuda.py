@@ -547,3 +547,117 @@ def test_service_matches_standalone_on_card(cuda_device):
             pose, diag = ref.process(*svc.stage_scan(scan))
             assert np.array_equal(pose, out[sid][f][0]), (sid, f)
             assert repr(tuple(diag)) == repr(tuple(out[sid][f][1])), (sid, f)
+
+
+# -- slice 6: stream-sharded and point-sharded registration --------------------
+# D > 1 blocks on one card: the mesh repeats cuda:0, as chip_smoke.py's
+# phase 10 does.
+
+def _small_service_config():
+    from repro_torch.core.icp import ICPParams as Params
+    from repro_torch.core.odometry import OdometryConfig
+    from repro_torch.data.submap import SubmapParams
+    return OdometryConfig(
+        params=Params(max_iterations=6, chunk=512, robust_kernel="huber",
+                      robust_scale=0.3),
+        submap=SubmapParams(voxel_size=0.75, capacity=1024, dims=(48, 48, 16),
+                            evict_radius=12.0),
+        scan_budget=256, recovery=False)
+
+
+def test_sharded_service_two_blocks_on_card(cuda_device):
+    """A 3-stream small-scene fleet through the sharded service, two
+    blocks of two lanes on one card: each stream gives the bits of its
+    standalone ``OdometryPipeline(svc.stream_config)`` replay and of a
+    one-block fleet of the same width; the fleet's NN launches are the
+    blocks' loop steps (at least one a registering round)."""
+    from repro_torch.core.odometry import OdometryPipeline
+    from repro_torch.data.pointcloud import SceneConfig, sequence_scans
+    from repro_torch.serve import RegistrationService, ServiceConfig
+    scene = SceneConfig(n_ground=300, n_walls=220, n_poles=60, n_clutter=70,
+                        extent=12.0, sensor_range=16.0)
+    odo = _small_service_config()
+    fleet = {f"veh{s}": sequence_scans(s, 5, scene) for s in range(3)}
+
+    def drive(devices, slots, sids):
+        svc = RegistrationService(
+            ServiceConfig(slots=slots, scan_capacity=1024, odometry=odo,
+                          devices=devices),
+            device=[str(cuda_device)] * devices)
+        for sid in sids:
+            svc.admit(sid)
+        out = {sid: [] for sid in sids}
+        for f in range(5):
+            for sid in sids:
+                svc.submit(sid, fleet[sid][f])
+            for sid, res in svc.step().items():
+                out[sid].append(res)
+        return svc, out
+
+    before = nn_search_kernel.launches
+    svc, out = drive(2, 4, list(fleet))
+    assert nn_search_kernel.launches - before >= 4
+    _, out1 = drive(1, 2, ["veh0", "veh2"])
+    for sid, scans in fleet.items():
+        ref = OdometryPipeline(svc.stream_config, device=cuda_device)
+        for f, scan in enumerate(scans):
+            pose, diag = ref.process(*svc.stage_scan(scan))
+            assert np.array_equal(pose, out[sid][f][0]), (sid, f)
+            assert repr(tuple(diag)) == repr(tuple(out[sid][f][1])), (sid, f)
+            if sid in out1:
+                assert np.array_equal(out1[sid][f][0], out[sid][f][0])
+
+
+def test_sharded_slots_one_block_matches_slots_on_card(cuda_device):
+    """``"sharded-slots"`` at D=1, L=4 runs the ``"slots"`` engine's calls
+    at ``slots=4``: the same bits; at D=2 over one card each block gives
+    its one-block bits."""
+    from repro_torch.core.engine import ShardedSlotEngine, SlotEngine
+    rng = np.random.default_rng(10)
+    src = _uniform(rng, (8, 512, 3), cuda_device, scale=20.0)
+    dst = src.repeat(1, 4, 1) + _uniform(rng, (8, 2048, 3), cuda_device,
+                                        scale=0.2)
+    T0 = torch.eye(4, device=cuda_device).repeat(8, 1, 1)
+    T0[:, 0, 3] = torch.linspace(0.0, 0.5, 8, device=cuda_device)
+    params = ICPParams(max_iterations=20)
+    slots = SlotEngine(slots=4, device=cuda_device)
+    one = ShardedSlotEngine(lanes_per_device=4, devices=[str(cuda_device)])
+    two = ShardedSlotEngine(lanes_per_device=4,
+                            devices=[str(cuda_device)] * 2)
+    r2 = two.register_batch(src, dst, params, initial_transforms=T0)
+    for blk in (slice(0, 4), slice(4, 8)):
+        ra = slots.register_batch(src[blk], dst[blk], params,
+                                  initial_transforms=T0[blk])
+        rb = one.register_batch(src[blk], dst[blk], params,
+                                initial_transforms=T0[blk])
+        for a, b, c in zip(ra, rb, r2):
+            assert torch.equal(a, b) and torch.equal(a, c[blk])
+
+
+def test_distributed_nn_search_on_card_matches_one_kernel_call(cuda_device):
+    """Four target shards on one card: d² and indices are the bits of one
+    NN-kernel call over the whole target (each pair's score does not
+    depend on the shard; the combine keeps the lower shard on ties)."""
+    from repro_torch.core import distributed as dist
+    rng = np.random.default_rng(11)
+    src = _uniform(rng, (4096, 3), cuda_device)
+    dst = _uniform(rng, (32768, 3), cuda_device)
+    dst[100] = dst[30000]
+    src[0] = dst[30000]
+    mesh = dist.Mesh(np.array([str(cuda_device)] * 4, dtype=object),
+                     ("model",))
+    d2, idx = dist.distributed_nn_search(mesh, src, dst)
+    d2_1, idx_1 = ops.nn_search_cuda(src, dst)
+    torch.cuda.synchronize()
+    assert torch.equal(d2, d2_1) and torch.equal(idx, idx_1)
+    assert int(idx[0]) == 100
+    # two copies a few micrometres apart, one per shard, both clamping to
+    # d2 = 0: the kernel's four-term scores decide, as in one search
+    pts = _uniform(rng, (4096, 3), cuda_device, scale=30.0)
+    dup = torch.cat([pts + 3e-6, pts])
+    two = dist.Mesh(np.array([str(cuda_device)] * 2, dtype=object),
+                    ("model",))
+    d2, idx = dist.distributed_nn_search(two, pts, dup)
+    d2_1, idx_1 = ops.nn_search_cuda(pts, dup)
+    torch.cuda.synchronize()
+    assert torch.equal(d2, d2_1) and torch.equal(idx, idx_1)

@@ -185,9 +185,13 @@ def test_engine_registry():
     assert get_engine("pyramid", device="cpu").name == "pyramid"
     slots = get_engine("slots", device="cpu", slots=4)
     assert isinstance(slots, KernelEngine) and slots.slots == 4
-    for name in ("distributed", "sharded-slots"):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            get_engine(name, device="cpu")
+    sharded = get_engine("sharded-slots", device="cpu", lanes_per_device=2,
+                         devices=3)
+    assert sharded.slots == 6 and sharded.mesh.shape == {"streams": 3}
+    assert sharded is get_engine("sharded-slots", device="cpu",
+                                 devices=3, lanes_per_device=2)
+    dist = get_engine("distributed", device="cpu")
+    assert dist.mesh.shape == {"data": 1, "model": 1}
     with pytest.raises(ValueError):
         get_engine("bogus", device="cpu")
     with pytest.raises(TypeError):

@@ -3,7 +3,8 @@ against the reference's (``repro.launch.registration``), on the CPU at
 small sizes, both run in this process on the same command line.
 
 ``pairwise --reduced`` (1 frame, 512 samples) with the reference's ``xla``
-engine, batched and per frame: every row's RMSE, k-d tree RMSE and
+engine, batched and per frame, and with ``distributed`` (the legacy
+point-sharded engine, batched): every row's RMSE, k-d tree RMSE and
 translation error within 1e-3 of the reference's row; for the batched
 run, the engine, the ICP parameters and the frame pairs that reach
 ``register_pairs`` are the reference's, converted. The port's rows alone,
@@ -23,7 +24,7 @@ seq 3's frame 1 stops at 15 iterations in the port's plain search and at
 split the same way), and the two runs then lie 3.9e-3 m apart. From such
 a frame on, the stream is held to the paper's 0.01 m band.
 
-The engine of a later slice raises.
+The ``distributed`` engine's per-frame loop meets the k-d tree's bands.
 """
 import numpy as np
 import pytest
@@ -33,7 +34,7 @@ import repro.serve.registration_service as jservice
 import repro_torch.launch.registration as tlaunch
 import repro_torch.serve.registration_service as tservice
 from repro_torch.core.icp import params_from_reference
-from repro_torch.launch.registration import main
+from repro_torch.launch.registration import ENGINE_ALIASES, main
 from repro_torch.serve import service_config_from_reference
 
 PAIRWISE = ["--mode", "pairwise", "--reduced", "--frames", "1",
@@ -102,8 +103,9 @@ def test_pairwise_rows_match_the_kdtree(extra):
     assert t_err <= 0.05
 
 
-@pytest.mark.parametrize("extra", [[], ["--per-frame"]],
-                         ids=["batched", "per_frame"])
+@pytest.mark.parametrize("extra", [[], ["--per-frame"],
+                                   ["--engine", "distributed"]],
+                         ids=["batched", "per_frame", "distributed"])
 def test_pairwise_matches_the_reference(extra, monkeypatch):
     jseen = _spy_engine(monkeypatch, jlaunch)
     tseen = _spy_engine(monkeypatch, tlaunch)
@@ -114,10 +116,12 @@ def test_pairwise_matches_the_reference(extra, monkeypatch):
         assert t[0] == j[0]
         for k in (1, 2, 5):  # RMSE, k-d tree RMSE, translation error
             assert abs(t[k] - j[k]) <= TOL, (k, t[k], j[k])
-    if extra:
+    if "--per-frame" in extra:
         assert not jseen and not tseen  # FppsICP builds its own engine
         return
-    assert (jseen["engine"], tseen["engine"]) == ("xla", "torch")
+    engine = extra[-1] if extra else "xla"
+    assert jseen["engine"] == engine
+    assert tseen["engine"] == ENGINE_ALIASES.get(engine, engine)
     assert tseen["params"] == params_from_reference(jseen["params"]._asdict())
     assert len(tseen["pairs"]) == len(jseen["pairs"])
     for a, b in zip(tseen["pairs"], jseen["pairs"]):
@@ -163,5 +167,10 @@ def test_serve_reports_every_stream(monkeypatch):
 
 
 def test_distributed_engine_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        main(PAIRWISE + ["--engine", "distributed"])
+    """Named when the engine raised; it is ported now: the per-frame
+    Table-I loop on the ``distributed`` engine (each pair a batch of one)
+    meets the k-d tree's bands."""
+    rows = main(PAIRWISE + ["--engine", "distributed", "--per-frame"])
+    assert len(rows) == 1
+    _, rmse, kdtree_rmse, _, _, t_err = rows[0]
+    assert abs(rmse - kdtree_rmse) <= 0.01 and t_err <= 0.05

@@ -1,5 +1,6 @@
 """Port vs reference: the slot engine and the multi-stream registration
-service (single device).
+service (single device; the sharded mode is
+``tests/test_torch_service_sharded.py``).
 
 One configuration for the whole module, the reference's own
 (``tests/test_service.py``): its small scene, ``scan_budget=256``, map
@@ -47,7 +48,7 @@ from repro_torch.core.engine import SlotEngine, get_engine
 from repro_torch.core.odometry import OdometryPipeline
 from repro_torch.data.collate import PAD_SENTINEL
 from repro_torch.data.submap import submap_state_from_reference
-from repro_torch.serve import (RegistrationService, ServiceConfig,
+from repro_torch.serve import (RegistrationService,
                                service_config_from_reference)
 
 SCENE = SceneConfig(n_ground=300, n_walls=220, n_poles=60, n_clutter=70,
@@ -454,13 +455,17 @@ def _churn_keeps_batch_shapes():
 
 
 def _sharded_not_ported():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ServiceConfig(devices=2)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        service_config_from_reference(JCFG._replace(devices=1)._asdict())
+    """Named when the sharded mode raised; it is ported now
+    (``tests/test_torch_service_sharded.py``): the reference's ``devices``
+    converts and builds a sharded service, and both sharded engines
+    resolve. An unknown reference field still raises."""
+    cfg = service_config_from_reference(JCFG._replace(devices=2)._asdict())
+    assert cfg.devices == 2
+    svc = RegistrationService(cfg, device="cpu")
+    assert svc.engine.name == "sharded-slots"
+    assert svc.service_report()["devices"] == 2
     for name in ("sharded-slots", "distributed"):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            get_engine(name, device="cpu")
+        assert get_engine(name, device="cpu").name == name
     with pytest.raises(ValueError, match="unknown"):
         service_config_from_reference(dict(JCFG._asdict(), lanes=2))
 
