@@ -146,11 +146,26 @@ that fails raises. Phases:
      against one NN-kernel call (expected: the same bits; d² held to 1e-4).
      Recorded, no speed claimed (the blocks share one card): round ms of
      (a) and (b) beside phase 9 (b)'s, wall ms of (c), (d) against one call.
+ 11. The drivers (slice 7): (a) each example's ``main`` at its own
+     defaults (``repro_torch.examples``: quickstart; odometry over 30
+     frames, scan-to-map and frame-to-frame; the fleet on the ``cuda``,
+     ``distributed`` and ``pyramid`` engines), each must print ``OK``:
+     wall ms per frame (host clock, first-call setup included, as the
+     examples print it) and launches; (b) the fused kernel's autotune sweep
+     (``repro_torch.tools.autotune_fused.sweep``) at the tool's default
+     shape: every launch setting (2, 4, 8, 16 warps a block, prune off and
+     on) must give the plain version's planes and the default setting's T,
+     bit for bit; each setting's device ms (the pass, and the whole
+     iteration), the winner, and each variant's registers, spills and
+     occupancy, which must agree with phase 0's ptxas log; (c)
+     ``make_frame_engine`` with a ``T`` at B=1, 4096 x 32768 (the seq-0
+     frame-0 pair, target padded with far-sentinel rows): the bits of
+     ``nn_search_cuda``.
 
 Every kernel count is set to 0 just before each main-path run (phases 2, 3,
-5, 7, 8, 9 and 10) and read just after. The last lines are the ``{"kernels": [...]}``
-report, the card line from ``nvidia-smi`` and ``{"ok": true, "device":
-{...}}``.
+5, 7, 8, 9, 10 and 11) and read just after. The last lines are the
+``{"kernels": [...]}`` report, the card line from ``nvidia-smi`` and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -191,10 +206,8 @@ def log(msg=""):
 
 
 def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    from repro_torch.device import card_line as line
+    return line()
 
 
 def rt_err(Ta, Tb):
@@ -227,67 +240,12 @@ def time_ms(torch, fn, warmup=3, reps=25):
     return statistics.median(times)
 
 
-_CYCLES_PER_MS = []
-
-
-def _sleep_cycles_per_ms(torch):
-    """Clock cycles of ``torch.cuda._sleep`` per ms on this card, measured
-    once."""
-    if not _CYCLES_PER_MS:
-        cycles = 20_000_000
-        torch.cuda._sleep(cycles // 10)  # warm-up
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(cycles)
-        end.record()
-        end.synchronize()
-        _CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
-    return _CYCLES_PER_MS[0]
-
-
 def device_ms(torch, fn, reps=20, blocks=5, warmup=3):
-    """Device time of one call of ``fn``: ``(median, min, max, ahead)`` in
-    ms over ``blocks`` blocks, each the CUDA-event time of ``reps``
-    back-to-back calls divided by ``reps``.
-
-    Each block is queued behind a busy-wait kernel (``torch.cuda._sleep``)
-    sized to twice the host's time for ``reps`` calls, so the host has
-    enqueued every call before the first one starts and the window holds
-    device time only, not the wrappers' host overhead. If the first block's
-    start event fired before the host finished enqueueing, it is retried
-    twice with a doubled wait; if it never got ahead, ``fn`` syncs the host
-    inside (a plain version that copies a scalar to the card), no wait can
-    help, and the remaining blocks run without one: ``ahead`` is then False
-    and the time includes those host gaps.
-    """
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    cycles = int(_sleep_cycles_per_ms(torch) * (2.0 * reps * host_ms + 0.5))
-    times, ahead = [], True
-    for block in range(blocks):
-        for attempt in range(3 if block == 0 else 1):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if ahead:
-                torch.cuda._sleep(cycles)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            got_ahead = not start.query()
-            end.synchronize()
-            if got_ahead or not ahead:
-                break
-            cycles *= 2
-        ahead = ahead and got_ahead
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times), min(times), max(times), ahead
+    """``repro_torch.device.device_ms``: ``(median, min, max, ahead)`` ms of
+    one call of ``fn`` on the device alone (CUDA events around back-to-back
+    calls queued behind a busy-wait)."""
+    from repro_torch.device import device_ms as timed
+    return timed(fn, reps=reps, blocks=blocks, warmup=warmup)
 
 
 def fmt_ms(t):
@@ -1613,9 +1571,10 @@ def hold_captured(torch, run, captured, regs,
         elif kernel == "candidate_sweep":
             again = candidate_sweep_kernel(*args)
             plain = ref.candidate_sweep(*args)
-        else:
+        else:  # the launch setting does not apply to the plain version
             again = (moment_planes(*args, **kw),)
-            plain = (ref.fused_moment_planes(*args, **kw),)
+            plain = (ref.fused_moment_planes(*args, **{
+                k: v for k, v in kw.items() if k != "warps_per_block"}),)
         torch.cuda.synchronize()
         same = all(bits_equal(torch, a, p) for o in (main, again)
                    for a, p in zip(o, plain))
@@ -2754,6 +2713,158 @@ def phase10(torch, np, scenes, fleet, dev=None):
     return out
 
 
+EXAMPLE_RUNS = (
+    ("quickstart", "quickstart", [], 1),
+    ("odometry_scan_to_map", "odometry", ["--frames", "30"], 30),
+    ("odometry_frame_to_frame", "odometry",
+     ["--frames", "30", "--mode", "frame_to_frame"], 30),
+    ("fleet_cuda", "fleet_registration", ["--engine", "cuda"], 4),
+    ("fleet_distributed", "fleet_registration", ["--engine", "distributed"],
+     4),
+    ("fleet_pyramid", "fleet_registration", ["--engine", "pyramid"], 4))
+
+
+def ptxas_resources(log_text):
+    """``{(warps, plane, prune): (registers, stack frame bytes)}`` of each
+    fused-kernel instantiation in ptxas's ``-v`` report."""
+    import re
+    out, key = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"fused_kernelILi(\d+)ELb([01])ELb([01])E", line)
+        if m and "Compiling entry function" in line:
+            key = (int(m.group(1)), m.group(2) == "1", m.group(3) == "1")
+            out[key] = [None, None]
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out[key][1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key][0] = int(m.group(1))
+            key = None
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def phase11(torch, np, scenes, fused_log):
+    """The drivers: the examples at their defaults, the autotune sweep of
+    the fused kernel's launch settings, and ``make_frame_engine``."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.data.collate import PAD_SENTINEL
+    from repro_torch.kernels.fused_icp import DEFAULT_CONFIG
+    from repro_torch.kernels.ops import make_frame_engine, nn_search_cuda
+    from repro_torch.tools import autotune_fused
+
+    t_phase = time.perf_counter()
+    out = dict(examples={})
+    totals = dict(nn_search=0, candidate_sweep=0, fused_moment_sweep=0,
+                  moment_sweep=0)
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    # (a) the examples, each through its main at its own defaults
+    for name, module, argv, frames in EXAMPLE_RUNS:
+        example = importlib.import_module(f"repro_torch.examples.{module}")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            result, wall, launches = counted(torch, lambda: example.main(argv))
+        add(launches)
+        lines = text.getvalue().strip().splitlines()
+        check(lines and lines[-1] == "OK", f"phase11 a {name}: the example "
+              f"did not print OK (last line {lines[-1:] or None})")
+        summary = [ln for ln in lines if ln.strip()][-2]
+        row = dict(argv=argv, frames=frames, wall_ms=wall,
+                   per_frame_ms=wall / frames, launches=launches,
+                   summary=summary)
+        if module == "odometry":
+            row["final_drift_m"] = float(result[-1])
+        elif module == "fleet_registration":
+            row["max_err"] = max(result)
+        out["examples"][name] = row
+        log(f"phase11 a {name} ({' '.join(argv) or 'defaults'}): OK | "
+            f"{wall:.1f} ms, {wall / frames:.2f} ms per frame (host clock, "
+            f"first-call setup included) | launches nn "
+            f"{launches['nn_search']} / sweep {launches['candidate_sweep']} "
+            f"/ fused {launches['fused_moment_sweep']} | {summary.strip()}")
+    check(out["examples"]["quickstart"]["launches"]["nn_search"] > 0,
+          "phase11 a: quickstart never launched nn_search")
+    check(out["examples"]["odometry_scan_to_map"]["launches"][
+        "candidate_sweep"] > 0, "phase11 a: odometry never launched the "
+          "grid sweep")
+
+    # (b) the autotune sweep at the tool's default shape
+    report, wall, launches = counted(
+        torch, lambda: autotune_fused.sweep(device=torch.device("cuda", 0)))
+    add(launches)
+    ptxas = ptxas_resources(fused_log)
+    check(len(ptxas) == 16, f"phase11 b: ptxas reported {len(ptxas)} fused "
+          f"instantiations, expected 16")
+    for r in report["configs"]:
+        key = (r["warps_per_block"], False, r["prune"])
+        tag = f"warps={key[0]} prune={int(key[2])}"
+        check(r["planes_bit_equal"], f"phase11 b {tag}: planes differ from "
+              f"the plain version's bits")
+        check(r["T_bit_equal"], f"phase11 b {tag}: T differs from the "
+              f"default setting's bits")
+        check(r["parity_ok"], f"phase11 b {tag}: failed the parity gate")
+        card = r["resources"]["card"]
+        check((card["registers"], card["local_bytes"]) == ptxas[key],
+              f"phase11 b {tag}: registers/local bytes {card['registers']}/"
+              f"{card['local_bytes']} disagree with ptxas {ptxas[key]}")
+        log(f"phase11 b {tag}: pass {r['pass_ms']:.4f} ms "
+            f"[{r['pass_ms_min']:.4f}-{r['pass_ms_max']:.4f}]"
+            f"{'' if r['pass_device_only'] else ' host'}, iteration "
+            f"{r['iter_ms']:.4f} ms [{r['iter_ms_min']:.4f}-"
+            f"{r['iter_ms_max']:.4f}]"
+            f"{'' if r['iter_device_only'] else ' host'} | registers "
+            f"{card['registers']} (ptxas {ptxas[key][0]}), local bytes "
+            f"{card['local_bytes']}, {card['blocks_per_sm']} blocks/SM, "
+            f"occupancy {card['occupancy']:.0%} | planes and T bit-equal")
+    best, noise = report["best"], report["best_within_noise_of_default"]
+    out["autotune"] = report
+    out["autotune_wall_ms"] = wall
+    out["autotune_launches"] = launches
+    log(f"phase11 b autotune ({report['n']} x {report['m']}, CK="
+        f"{report['ck']}; {report['card']}): winner warps="
+        f"{best['warps_per_block']} prune={best['prune']} (iteration "
+        f"{best['iter_ms']:.4f} ms, pass {best['pass_ms']:.4f} ms"
+        f"{'; within noise of the default' if noise else ''}); "
+        f"default {tuple(DEFAULT_CONFIG)} is best: {report['default_is_best']}"
+        f" | {launches['fused_moment_sweep']} fused launches, {wall / 1e3:.1f}"
+        f" s")
+
+    # (c) make_frame_engine with a T against nn_search_cuda
+    dev = torch.device("cuda", 0)
+    src, dst, T_gt = scenes["seq0"][0]
+    src = torch.as_tensor(src, device=dev)
+    target = torch.full((32768, 3), PAD_SENTINEL, device=dev)
+    target[:len(dst)] = torch.as_tensor(dst, device=dev)
+    T = torch.as_tensor(T_gt, dtype=torch.float32, device=dev)
+    nn_fn = make_frame_engine(target)
+    (d2, idx), _, launches = counted(torch, lambda: nn_fn(src, T))
+    add(launches)
+    check(launches["nn_search"] == 1, f"phase11 c: {launches['nn_search']} "
+          f"NN launches, expected 1")
+    d2_1, idx_1 = nn_search_cuda(src, target, T)
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(d2, d2_1) and torch.equal(idx, idx_1))
+    check(bit_equal, "phase11 c: make_frame_engine differs from "
+          "nn_search_cuda's bits")
+    out["c_frame_engine"] = dict(shape=[src.shape[0], target.shape[0]],
+                                 bit_equal=bit_equal)
+    log(f"phase11 c: make_frame_engine(target)(src, T), {src.shape[0]} x "
+        f"{target.shape[0]}: the bits of nn_search_cuda")
+    out["launch_totals"] = totals
+    log(f"phase11: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def compare_minimizers(report):
     """Log each point-to-plane run of phase 7 beside the point-to-point run
     of the same path (phases 2, 3 and 5): iterations and wall ms per
@@ -2854,8 +2965,9 @@ def main(argv=None):
     report["phase8"] = phase8(torch, np)
     report["phase9"], fleet = phase9(torch, np)
     report["phase10"] = phase10(torch, np, scenes, fleet)
+    report["phase11"] = phase11(torch, np, scenes, logs["fused_icp"])
     totals = {k: v + sum(report[f"phase{p}"]["launch_totals"][k]
-                         for p in (7, 8, 9, 10))
+                         for p in (7, 8, 9, 10, 11))
               for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(
@@ -2928,7 +3040,11 @@ def main(argv=None):
         plane_ms=planes["seq0_b1"]["ms"],
         plane_prune_ms=planes["seq0_b1"]["prune_ms"],
         plane_plain_ms=planes["seq0_b1"]["plain_ms"],
-        plane_bound_ms=planes["seq0_b1"]["bound_ms"]), dict(
+        plane_bound_ms=planes["seq0_b1"]["bound_ms"],
+        setting_pass_ms={f"{r['warps_per_block']}w"
+                         f"{'p' if r['prune'] else ''}": r["pass_ms"]
+                         for r in report["phase11"]["autotune"]["configs"]}),
+        dict(
         name="moment_sweep", route="cuda",
         source="src/repro_torch/kernels/csrc/normals.cu",
         replaces="src/repro/kernels/normals.py:47",

@@ -29,6 +29,16 @@ def gather_rows(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(points, -2, index)
 
 
+def pairwise_sq_dists(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """(..., N, 3), (..., M, 3) -> (..., N, M) squared distances from the
+    matmul expansion, clamped at 0 (the reference's, which it also leaves
+    outside any kernel). Raises on a CUDA tensor while TF32 matmuls are on."""
+    check_fp32_matmul(src)
+    sn = (src * src).sum(-1)[..., :, None]
+    dn = (dst * dst).sum(-1)[..., None, :]
+    return (sn + dn - 2.0 * (src @ dst.mT)).clamp_min(0.0)
+
+
 def nn_search(src: torch.Tensor, dst: torch.Tensor, *, chunk: int = 2048,
               dst_valid: torch.Tensor | None = None,
               score_dtype: str = "fp32", return_points: bool = False):

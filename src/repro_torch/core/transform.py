@@ -43,6 +43,30 @@ def rotation_from_axis_angle(axis: torch.Tensor,
     return eye + s * K + (1.0 - c) * (K @ K)
 
 
+def random_rigid_transform(max_angle: float = 0.5,
+                           max_translation: float = 1.0, *,
+                           generator: torch.Generator | None = None,
+                           device="cpu",
+                           dtype: torch.dtype = torch.float32
+                           ) -> torch.Tensor:
+    """A random SE(3) transform (4, 4) for tests and synthetic data.
+
+    The reference's function: a rotation by Rodrigues' formula about a
+    normal-drawn axis through an angle uniform in ``[-max_angle,
+    max_angle)``, and a translation uniform in ``[-max_translation,
+    max_translation)`` per axis. The draws come from ``generator`` (a CPU
+    ``torch.Generator``; the global one when None), so they differ from the
+    reference's JAX PRNG draws for any seed. Drawn on the CPU, then moved to
+    ``device``: one seed gives the same transform on every device.
+    """
+    axis = torch.randn(3, generator=generator, dtype=dtype)
+    angle = (torch.rand((), generator=generator, dtype=dtype) * 2.0 - 1.0
+             ) * max_angle
+    t = (torch.rand(3, generator=generator, dtype=dtype) * 2.0 - 1.0
+         ) * max_translation
+    return make_transform(rotation_from_axis_angle(axis, angle), t).to(device)
+
+
 def _det3(A: torch.Tensor) -> torch.Tensor:
     """Determinant of (..., 3, 3) matrices by cofactor expansion."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]

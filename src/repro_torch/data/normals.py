@@ -211,6 +211,22 @@ def estimate_normals(points: torch.Tensor,
     return normals, nvalid
 
 
+def estimate_normals_batch(points: torch.Tensor,
+                           params: NormalParams = NormalParams(), *,
+                           valid: torch.Tensor | None = None,
+                           viewpoint: torch.Tensor | None = None):
+    """The reference's batched entry point (a vmap there): normals of a
+    (B, N, 3) frame batch in one :func:`estimate_normals` call over the
+    batch dimension, with ``valid`` (B, N) defaulting to all rows."""
+    if points.dim() != 3:
+        raise ValueError(f"points must be (B, N, 3), got "
+                         f"{tuple(points.shape)}")
+    if valid is None:
+        valid = torch.ones(points.shape[:2], dtype=torch.bool,
+                           device=points.device)
+    return estimate_normals(points, params, valid=valid, viewpoint=viewpoint)
+
+
 def default_target_normals(target: torch.Tensor,
                            valid: torch.Tensor | None = None
                            ) -> torch.Tensor:

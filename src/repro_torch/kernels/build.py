@@ -11,6 +11,10 @@ name carries a hash of the flags and sources, so an edited kernel is rebuilt
 and a stale library is never loaded. :func:`build_all` starts one ``nvcc``
 per source, all at once. Nothing here runs at import time: the CPU tests
 import every module on machines without ``nvcc``.
+
+:func:`kernel_attributes` reads what the compiler and the card give a built
+kernel (registers, spills, shared memory, occupancy) through the query each
+library exports (``csrc/kernel_attributes.cuh``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import pathlib
 import shutil
 import subprocess
 import threading
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
@@ -115,3 +121,30 @@ def load(name: str) -> ctypes.CDLL:
                 build_all([name])
             lib = _loaded[name] = ctypes.CDLL(str(path))
         return lib
+
+
+# The order of csrc/kernel_attributes.cuh's out[].
+ATTRIBUTES = ("registers", "local_bytes", "static_shared_bytes",
+              "max_threads_per_block", "blocks_per_sm", "max_threads_per_sm")
+
+
+def kernel_attributes(query, *, threads: int, device) -> dict:
+    """A built kernel's resources on the card ``device``: ``query(out)``
+    calls a library's ``fpps_*_attributes`` function (the library is loaded
+    inside it, so nothing is built for another device), ``threads`` is the
+    kernel's threads a block. Returns :data:`ATTRIBUTES` and ``occupancy``,
+    the resident threads' share of the SM's most. Raises for a device other
+    than CUDA: the numbers are the card's."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"kernel attributes are read on a CUDA device, not "
+                         f"{dev}")
+    out = (ctypes.c_int * len(ATTRIBUTES))()
+    with torch.cuda.device(dev):
+        err = query(out)
+    if err != 0:
+        raise RuntimeError(f"kernel attribute query failed: CUDA error {err}")
+    attrs = dict(zip(ATTRIBUTES, out))
+    attrs["occupancy"] = (attrs["blocks_per_sm"] * threads
+                          / attrs["max_threads_per_sm"])
+    return attrs

@@ -44,18 +44,25 @@
 // Bound on an H100 SXM: bytes, as for the sweep: the candidate matrix is
 // read once (42.5 MB at B=1, N=4096, CK=864: 0.0127 ms at 3.35 TB/s); the
 // winner's normal (12 B per query) and the 18 or 45 planes written (0.3 or
-// 0.7 MB) are small beside it. Design: one warp per query, 8 per block;
-// lane 0 runs the epilogue. Later work: read the cell tables directly, and
-// reduce the planes in the kernel in a fixed order.
+// 0.7 MB) are small beside it. Design: one warp per query, kWarps per block
+// (2, 4, 8 or 16, the launch setting that the autotune sweep ranks; 8 by
+// default); lane 0 runs the epilogue. A query's arithmetic does not depend
+// on the block it lies in, so every setting gives the same bits. Later
+// work: read the cell tables directly, and reduce the planes in the kernel
+// in a fixed order.
+//
+// fpps_fused_attributes reports each instantiation's registers, local
+// (spill) bytes, static shared bytes and resident blocks per SM
+// (kernel_attributes.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "candidate_argmin.cuh"
+#include "kernel_attributes.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
 constexpr int kP2PPlanes = 18;
 constexpr int kP2PlanePlanes = 45;
 enum Robust { kNone = 0, kHuber = 1, kTukey = 2 };
@@ -102,8 +109,8 @@ __device__ __forceinline__ fpps::SlotMin screened_argmin(
   return fpps::warp_min(best);
 }
 
-template <bool kPlane, bool kPrune>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <int kWarps, bool kPlane, bool kPrune>
+__global__ void __launch_bounds__(kWarps * 32)
     fused_kernel(const float* __restrict__ q, const float* __restrict__ sv,
                  const float* __restrict__ cand,
                  const float* __restrict__ cand_n, float* __restrict__ planes,
@@ -111,7 +118,7 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                  int robust, float scale, float tukey_c) {
   constexpr int kPlanes = kPlane ? kP2PlanePlanes : kP2PPlanes;
   const long long r =
-      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / 32;
+      static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
   if (r >= rows) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
   const long long row_off = r * 3 * static_cast<long long>(ck);
@@ -203,14 +210,30 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                    __fmul_rn(qz, qz)));
 }
 
-template <bool kPlane, bool kPrune>
-void launch(unsigned blocks, cudaStream_t stream, const float* q,
-            const float* sv, const float* cand, const float* cand_n,
-            float* planes, long long rows, int n, int ck, float gate2,
-            float limit2, int robust, float scale, float tukey_c) {
-  fused_kernel<kPlane, kPrune><<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      q, sv, cand, cand_n, planes, rows, n, ck, gate2, limit2, robust, scale,
-      tukey_c);
+// Every instantiation has this signature.
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, float*, long long, int, int, float,
+                        float, int, float, float);
+
+template <int kWarps>
+Kernel pick(bool plane, bool prune) {
+  if (plane) {
+    return prune ? fused_kernel<kWarps, true, true>
+                 : fused_kernel<kWarps, true, false>;
+  }
+  return prune ? fused_kernel<kWarps, false, true>
+               : fused_kernel<kWarps, false, false>;
+}
+
+// The kernel of a launch setting, or null for a warp count not built.
+Kernel select(int warps, bool plane, bool prune) {
+  switch (warps) {
+    case 2: return pick<2>(plane, prune);
+    case 4: return pick<4>(plane, prune);
+    case 8: return pick<8>(plane, prune);
+    case 16: return pick<16>(plane, prune);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -221,31 +244,37 @@ int fpps_fused_planes(int plane) {
   return plane ? kP2PlanePlanes : kP2PPlanes;
 }
 
-// Launches the pass on `stream`; planes is (rows / n, P, n) with P =
+// Launches the pass on `stream` with `warps` warps (queries) per block, one
+// of 2, 4, 8, 16; planes is (rows / n, P, n) with P =
 // fpps_fused_planes(cand_n != nullptr). cand_n is null for point-to-point.
 // prune != 0 screens at limit2 = (gate · PRUNE_MARGIN)². Returns
 // cudaGetLastError() after the launch (0 on success); never synchronises.
 int fpps_fused(const float* q, const float* sv, const float* cand,
                const float* cand_n, float* planes, long long rows, int n,
                int ck, float gate2, int prune, float limit2, int robust,
-               float scale, float tukey_c, void* stream) {
-  const long long blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (rows < 1 || n < 1 || rows % n != 0 || ck < 1 || robust < kNone ||
-      robust > kTukey || blocks > 0x7fffffffLL) {
+               float scale, float tukey_c, int warps, void* stream) {
+  const Kernel kernel = select(warps, cand_n != nullptr, prune != 0);
+  if (kernel == nullptr || rows < 1 || n < 1 || rows % n != 0 || ck < 1 ||
+      robust < kNone || robust > kTukey) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned nb = static_cast<unsigned>(blocks);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cand_n != nullptr) {
-    (prune ? launch<true, true> : launch<true, false>)(
-        nb, s, q, sv, cand, cand_n, planes, rows, n, ck, gate2, limit2,
-        robust, scale, tukey_c);
-  } else {
-    (prune ? launch<false, true> : launch<false, false>)(
-        nb, s, q, sv, cand, cand_n, planes, rows, n, ck, gate2, limit2,
-        robust, scale, tukey_c);
-  }
+  const long long blocks = (rows + warps - 1) / warps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(blocks), warps * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+      q, sv, cand, cand_n, planes, rows, n, ck, gate2, limit2, robust, scale,
+      tukey_c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The compiled resources of the setting (warps, plane, prune) on the
+// current device, into out[0..5]: fpps::kernel_attributes at warps * 32
+// threads a block. Returns a cudaError_t (0 on success).
+int fpps_fused_attributes(int warps, int plane, int prune, int* out) {
+  const Kernel kernel = select(warps, plane != 0, prune != 0);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fpps::kernel_attributes(reinterpret_cast<const void*>(kernel),
+                                 warps * 32, out);
 }
 
 }  // extern "C"

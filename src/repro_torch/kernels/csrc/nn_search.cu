@@ -82,12 +82,18 @@
 //    has only a few query tiles and needs S of ~33 to fill 132 SMs.
 //  * The batch goes on gridDim.z, so a frame batch is one launch.
 //
-// The library reports kBlockN and kTileM to its wrapper.
+// The library reports kBlockN and kTileM to its wrapper, and the kernel's
+// compiled resources (fpps_nn_attributes). Its static shared memory is the
+// tile ring, kStages * kRows * kTileM floats (8 KB), the kStages stage
+// barriers (8 B each) and the merge flag (4 B):
+// kernels/nn_search.py::smem_bytes.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+
+#include "kernel_attributes.cuh"
 
 namespace {
 
@@ -377,6 +383,14 @@ int fpps_nn_search(const float* src_aug, const float* dst_aug, void* acc,
       src_aug, dst_aug, static_cast<unsigned long long*>(acc), tickets,
       best_d2, best_idx, np, mp, n_splits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel's compiled resources on the current device, into out[0..5]:
+// fpps::kernel_attributes at kThreads threads a block. Returns a
+// cudaError_t (0 on success).
+int fpps_nn_attributes(int* out) {
+  return fpps::kernel_attributes(
+      reinterpret_cast<const void*>(nn_search_kernel), kThreads, out);
 }
 
 }  // extern "C"

@@ -27,9 +27,12 @@ Either way the (..., P, N) planes are summed over N with ``torch.sum``
 (no float atomics, the same sums from run to run).
 ``fused_moment_sweep.launches`` counts the kernel's launches.
 
-The reference's ``FusedConfig`` (TPU tile sizes ``bn`` and ``bc``) and its
-VMEM and cost models (``fused_vmem_bytes``, ``fused_cost_model``) have no
-counterpart: the CUDA kernel takes none of them.
+:class:`FusedConfig` is the kernel's launch setting, the axes that the
+autotune sweep (``repro_torch.tools.autotune_fused``) ranks: warps (one a
+query) per block, and the prune. It replaces the reference's TPU tiles
+``bn``/``bc``. Every setting gives the same bits. :func:`fused_resources`
+(the counterpart of the reference's VMEM model ``fused_vmem_bytes``) and
+:func:`fused_cost_model` are the Table II analogue on the H100.
 """
 from __future__ import annotations
 
@@ -62,6 +65,31 @@ def moment_names(plane: bool) -> tuple[str, ...]:
     return P2PLANE_MOMENTS if plane else P2P_MOMENTS
 
 
+# The warps-per-block values csrc/fused_icp.cu instantiates.
+WARPS_PER_BLOCK = (2, 4, 8, 16)
+
+
+class FusedConfig(NamedTuple):
+    """The fused kernel's launch setting: ``warps_per_block`` queries (one
+    warp each) a block, one of :data:`WARPS_PER_BLOCK`, and ``prune``, the
+    bf16 candidate screen. The defaults are the setting the kernel ran
+    with before the sweep existed; ``python -m
+    repro_torch.tools.autotune_fused --apply`` says whether the card ranks
+    another first. On CPU tensors neither applies: the plain version runs."""
+
+    warps_per_block: int = 8
+    prune: bool = False
+
+
+DEFAULT_CONFIG = FusedConfig()
+
+
+def _check_warps(warps_per_block: int) -> None:
+    if warps_per_block not in WARPS_PER_BLOCK:
+        raise ValueError(f"warps_per_block must be one of {WARPS_PER_BLOCK}, "
+                         f"got {warps_per_block!r}")
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """The built kernel library with its C signatures declared."""
@@ -69,8 +97,11 @@ def _library() -> ctypes.CDLL:
     lib.fpps_fused.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_float,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.fpps_fused.restype = ctypes.c_int
+    lib.fpps_fused_attributes.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.fpps_fused_attributes.restype = ctypes.c_int
     lib.fpps_fused_planes.argtypes = [ctypes.c_int]
     lib.fpps_fused_planes.restype = ctypes.c_int
     for plane in (False, True):
@@ -83,13 +114,17 @@ def _library() -> ctypes.CDLL:
 def moment_planes(q: torch.Tensor, cand: torch.Tensor, sv: torch.Tensor,
                   cand_normals: torch.Tensor | None = None, *, gate: float,
                   robust_kernel: str = "none", robust_scale: float = 0.5,
-                  prune: bool = False) -> torch.Tensor:
+                  prune: bool = False,
+                  warps_per_block: int = DEFAULT_CONFIG.warps_per_block
+                  ) -> torch.Tensor:
     """Per-query moment planes of the fused pass, (..., P, N) float32 in
     ``moment_names(cand_normals is not None)`` order, for q (..., N, 3),
     cand (..., N, CK, 3), sv (..., N) and cand_normals (..., N, CK, 3)
     float32: the kernel on CUDA tensors (counted in
-    ``fused_moment_sweep.launches``), the plain version on CPU tensors."""
+    ``fused_moment_sweep.launches``) at ``warps_per_block`` queries a
+    block, the plain version on CPU tensors."""
     check_candidates(q, cand)
+    _check_warps(warps_per_block)
     plane = cand_normals is not None
     if plane and (cand_normals.shape != cand.shape
                   or cand_normals.dtype != torch.float32
@@ -120,7 +155,7 @@ def moment_planes(q: torch.Tensor, cand: torch.Tensor, sv: torch.Tensor,
             q.numel() // 3, n, cand.shape[-2], float(gate) ** 2, int(prune),
             ref.prune_limit(gate),
             ref.ROBUST_CODES[robust_kernel], float(robust_scale),
-            max(float(robust_scale), 1e-12), stream)
+            max(float(robust_scale), 1e-12), warps_per_block, stream)
     if err != 0:
         raise RuntimeError(f"fused_moment_sweep kernel launch failed: CUDA "
                            f"error {err}")
@@ -132,8 +167,9 @@ def fused_moment_sweep(q: torch.Tensor, cand: torch.Tensor,
                        src_valid: torch.Tensor | None = None,
                        cand_normals: torch.Tensor | None = None, *,
                        gate: float, robust_kernel: str = "none",
-                       robust_scale: float = 0.5,
-                       prune: bool = False) -> dict:
+                       robust_scale: float = 0.5, prune: bool = False,
+                       warps_per_block: int = DEFAULT_CONFIG.warps_per_block
+                       ) -> dict:
     """One fused candidate pass: NN min + gate + IRLS weight + moments.
 
     Args:
@@ -144,6 +180,7 @@ def fused_moment_sweep(q: torch.Tensor, cand: torch.Tensor,
         select the point-to-plane moment set.
       gate / robust_kernel / robust_scale: the ``ICPParams`` weighting.
       prune: the bf16 candidate screen at ``gate * ref.PRUNE_MARGIN``.
+      warps_per_block: the kernel's queries a block (:class:`FusedConfig`).
 
     Returns:
       dict mapping ``moment_names(plane)`` to (...) float32 sums over the N
@@ -155,7 +192,8 @@ def fused_moment_sweep(q: torch.Tensor, cand: torch.Tensor,
           if src_valid is None else src_valid.to(torch.float32))
     planes = moment_planes(q, cand, sv, cand_normals, gate=gate,
                            robust_kernel=robust_kernel,
-                           robust_scale=robust_scale, prune=prune)
+                           robust_scale=robust_scale, prune=prune,
+                           warps_per_block=warps_per_block)
     sums = planes.sum(-1)
     names = moment_names(cand_normals is not None)
     return {name: sums[..., k] for k, name in enumerate(names)}
@@ -208,7 +246,7 @@ def _assemble(s: dict, plane: bool = False):
 
 def make_fused_fn(grid: VoxelGrid, params, target_normals=None, *,
                   max_per_cell: int = 32, rings: int = 1,
-                  prune: bool = False):
+                  config: FusedConfig = DEFAULT_CONFIG):
     """Resident-grid fused iteration: ``fused_fn(src_t, src_valid)`` ->
     :class:`PointMoments`, or :class:`PlaneMoments` for the point-to-plane
     minimiser.
@@ -220,8 +258,9 @@ def make_fused_fn(grid: VoxelGrid, params, target_normals=None, *,
     the grid's cloud (invalid rows 0): they are put in the grid's sorted
     order once here and gathered with the coordinates each iteration.
     ``params`` is a ``core.icp.ICPParams`` (gate, minimiser and robust
-    fields).
+    fields), ``config`` the kernel's launch setting and prune.
     """
+    _check_warps(config.warps_per_block)
     plane = params.minimizer == "point_to_plane"
     if plane and target_normals is None:
         raise ValueError("minimizer='point_to_plane' needs target_normals "
@@ -238,7 +277,8 @@ def make_fused_fn(grid: VoxelGrid, params, target_normals=None, *,
             src_t.to(torch.float32), cand_pts, src_valid, cand_n,
             gate=params.max_correspondence_distance,
             robust_kernel=params.robust_kernel,
-            robust_scale=params.robust_scale, prune=prune)
+            robust_scale=params.robust_scale, prune=config.prune,
+            warps_per_block=config.warps_per_block)
         return _assemble(sums, plane)
 
     return fused_fn
@@ -246,7 +286,8 @@ def make_fused_fn(grid: VoxelGrid, params, target_normals=None, *,
 
 def default_fused_fn(target: torch.Tensor, params, *,
                      dst_valid: torch.Tensor | None = None,
-                     target_normals: torch.Tensor | None = None):
+                     target_normals: torch.Tensor | None = None,
+                     config: FusedConfig = DEFAULT_CONFIG):
     """The fused iteration for a raw (..., M, 3) target: a counting-sort
     grid over ``DEFAULT_GRID_DIMS`` with voxel ``max(1, gate)``
     (``core.nn_search_grid.grid_voxel_size``: every gate-passing
@@ -257,4 +298,89 @@ def default_fused_fn(target: torch.Tensor, params, *,
         target.to(torch.float32),
         grid_voxel_size(params.max_correspondence_distance),
         DEFAULT_GRID_DIMS, valid=dst_valid)
-    return make_fused_fn(grid, params, target_normals)
+    return make_fused_fn(grid, params, target_normals, config=config)
+
+
+# -- resource and cost models (the reference's Table II analogue) -----------
+
+def fused_resources(config: FusedConfig = DEFAULT_CONFIG, *,
+                    plane: bool = False, ck: int = 27 * 32,
+                    device=None) -> dict:
+    """What one launch setting of the fused kernel takes (the counterpart
+    of the reference's VMEM model ``fused_vmem_bytes``).
+
+    The numbers ``csrc/fused_icp.cu`` fixes: threads and queries a block,
+    the planes, the bytes a warp reads per query (its ``ck``-slot candidate
+    row, the query, its mask and, for point-to-plane, the winner's normal)
+    and writes (one fp32 a plane), and the static shared bytes (none: the
+    warp's argmin runs in shuffles). With a CUDA ``device`` also ``card``:
+    the compiled instantiation's registers, local (spill) bytes, static
+    shared bytes, resident blocks per SM and occupancy there
+    (:func:`repro_torch.kernels.build.kernel_attributes`); any other device
+    raises, since the attributes are the card's.
+    """
+    _check_warps(config.warps_per_block)
+    planes = len(moment_names(plane))
+    out = dict(warps_per_block=config.warps_per_block,
+               prune=bool(config.prune), plane=bool(plane),
+               threads_per_block=32 * config.warps_per_block,
+               queries_per_block=config.warps_per_block, planes=planes,
+               read_bytes_per_query=12 * ck + 12 + 4 + (12 if plane else 0),
+               write_bytes_per_query=4 * planes, static_shared_bytes=0)
+    if device is not None:
+        out["card"] = build.kernel_attributes(
+            lambda res: _library().fpps_fused_attributes(
+                config.warps_per_block, int(plane), int(config.prune), res),
+            threads=out["threads_per_block"], device=device)
+    return out
+
+
+def fused_cost_model(n: int, ck: int, *, plane: bool = False) -> dict:
+    """FLOP and HBM-byte totals of one iteration over ``n`` queries of
+    ``ck`` candidate slots: the fused pass against the separate chain
+    (candidate sweep, winner gather, gate and weight, moments), each with
+    its terms.
+
+    The reference's formulas (``repro.kernels.fused_icp.fused_cost_model``)
+    where the port does the same work: the distances (8 FLOP a slot), the
+    epilogue (60 or 160 FLOP a query), the candidate gather's write, the
+    queries and masks, the plane write, the chain's sweep outputs and its
+    eager passes. Where the counts differ:
+
+      * the port picks the winner by its slot, not by one-hot selects, so
+        it has none of the reference's ``(2 + 3 or 6)·n·ck`` select FLOP;
+      * its (P, N) planes are summed by ``torch.sum`` outside the kernel:
+        ``P·n`` FLOP and a re-read of the planes (``plane_sum``);
+      * the point-to-plane kernel reads the candidate coordinates and the
+        winner's normal (12 bytes a query), not all six gathered planes;
+      * the chain's winner gather reads the ``n`` winning rows (and, for
+        point-to-plane, their normals), not the candidate matrix again,
+        and its gather writes coordinates only.
+    """
+    planes = len(moment_names(plane))
+    coord_bytes = 3 * n * ck * 4
+    cand_bytes = (6 if plane else 3) * n * ck * 4
+    dist_flops = 8 * n * ck
+    epilogue_flops = (160 if plane else 60) * n
+    fused = dict(
+        flops_terms=dict(distance=dist_flops, epilogue=epilogue_flops,
+                         plane_sum=planes * n),
+        bytes_terms=dict(gather_write=cand_bytes,
+                         candidate_read=coord_bytes + (12 * n if plane
+                                                       else 0),
+                         queries=4 * n * 4, planes_write=planes * n * 4,
+                         plane_sum=planes * n * 4))
+    chain = dict(
+        flops_terms=dict(distance=dist_flops, epilogue=epilogue_flops,
+                         covariance=2 * 3 * n * 3),
+        bytes_terms=dict(gather_write=coord_bytes, candidate_read=coord_bytes,
+                         queries=3 * n * 4,
+                         sweep_out=2 * (n * 4 + n * 4),
+                         winner_gather=2 * 12 * n * (2 if plane else 1),
+                         passes=6 * (3 * n * 4)))
+    for d in (fused, chain):
+        d["flops"] = sum(d["flops_terms"].values())
+        d["hbm_bytes"] = sum(d["bytes_terms"].values())
+        d["flop_per_byte"] = d["flops"] / d["hbm_bytes"]
+    return {"fused": fused, "chain": chain,
+            "hbm_ratio": chain["hbm_bytes"] / fused["hbm_bytes"]}

@@ -13,6 +13,9 @@ the tensors decides what runs:
 a CUDA tensor, however many frames the batch holds) so a run can show that
 its main path went through the kernel. A call is one device kernel: the
 target-axis splits are merged inside it (``csrc/nn_search.cu``).
+:func:`smem_bytes` is the kernel's shared-memory budget (the counterpart of
+the reference's VMEM model ``vmem_bytes``) and, on the card, its compiled
+resources.
 """
 from __future__ import annotations
 
@@ -24,8 +27,11 @@ import torch
 from repro_torch.kernels import build, ref
 
 AUG_ROWS = ref.AUG_ROWS
+THREADS = 256   # threads per block (csrc kThreads)
 BLOCK_N = 512   # queries per block (256 threads x 2): N must be a multiple
 TILE_M = 128    # targets per shared-memory tile: M must be a multiple
+STAGES = 4      # tiles in flight (csrc kStages)
+SUM_ROWS = 4    # operand rows a tile holds (csrc kRows: the four-term sum)
 # The M split (``num_splits``), chosen by timing split rules on an H100:
 # about two blocks per SM, so one frame runs in one wave; ranges of at
 # most 16 tiles, so a batch's many blocks balance across the SMs; and at
@@ -46,10 +52,31 @@ def _library() -> ctypes.CDLL:
     lib.fpps_nn_search.restype = _c_int
     lib.fpps_nn_block_n.restype = _c_int
     lib.fpps_nn_tile_m.restype = _c_int
+    lib.fpps_nn_attributes.argtypes = [ctypes.POINTER(_c_int)]
+    lib.fpps_nn_attributes.restype = _c_int
     if (lib.fpps_nn_block_n(), lib.fpps_nn_tile_m()) != (BLOCK_N, TILE_M):
         raise RuntimeError("csrc/nn_search.cu tile sizes disagree with "
                            "kernels/nn_search.py")
     return lib
+
+
+def smem_bytes(device=None) -> dict:
+    """The NN kernel's shared memory a block, as ``csrc/nn_search.cu`` fixes
+    it: the ring of ``STAGES`` target tiles (``SUM_ROWS`` x ``TILE_M`` fp32
+    each), one 8-byte ``mbarrier`` a stage and the 4-byte merge flag;
+    ``total`` is their sum, the kernel's static shared bytes. With a CUDA
+    ``device`` also ``card``: the compiled kernel's resources there
+    (:func:`repro_torch.kernels.build.kernel_attributes`); any other device
+    raises."""
+    out = dict(tile_ring=STAGES * SUM_ROWS * TILE_M * 4, barriers=STAGES * 8,
+               merge_flag=4, threads_per_block=THREADS,
+               queries_per_block=BLOCK_N)
+    out["total"] = out["tile_ring"] + out["barriers"] + out["merge_flag"]
+    if device is not None:
+        out["card"] = build.kernel_attributes(
+            lambda res: _library().fpps_nn_attributes(res), threads=THREADS,
+            device=device)
+    return out
 
 
 def _check(src_aug: torch.Tensor, dst_aug: torch.Tensor) -> None:

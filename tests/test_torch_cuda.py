@@ -661,3 +661,77 @@ def test_distributed_nn_search_on_card_matches_one_kernel_call(cuda_device):
     d2_1, idx_1 = ops.nn_search_cuda(pts, dup)
     torch.cuda.synchronize()
     assert torch.equal(d2, d2_1) and torch.equal(idx, idx_1)
+
+
+# -- slice 7: the fused kernel's launch settings, resources, frame engine ----
+
+@pytest.mark.parametrize("plane", [False, True])
+def test_fused_settings_give_plain_bits_on_card(cuda_device, plane):
+    """Every warps-per-block setting, prune on and off, both minimisers:
+    the plain version's bits (a query's arithmetic does not depend on its
+    block)."""
+    from repro_torch.kernels.fused_icp import (WARPS_PER_BLOCK,
+                                               fused_moment_sweep,
+                                               moment_planes)
+    rng = np.random.default_rng(21)
+    q, cand = _candidate_rows(rng, cuda_device, 2 * 1001, 96)
+    q, cand = q.view(2, 1001, 3), cand.view(2, 1001, 96, 3)
+    cn = None
+    if plane:
+        cn = torch.nn.functional.normalize(torch.randn(
+            cand.shape, generator=torch.Generator().manual_seed(1)), dim=-1)
+        cn = torch.where(cand == 1e15, 0.0, cn.to(cuda_device))
+    sv = torch.from_numpy((rng.uniform(size=(2, 1001)) > 0.1).astype(
+        np.float32)).to(cuda_device)
+    for robust in ("none", "huber"):
+        kw = dict(gate=1.0, robust_kernel=robust, robust_scale=0.6)
+        plain = ref.fused_moment_planes(q, cand, sv, cn, **kw)
+        for warps in WARPS_PER_BLOCK:
+            for prune in (False, True):
+                before = fused_moment_sweep.launches
+                got = moment_planes(q, cand, sv, cn, prune=prune,
+                                    warps_per_block=warps, **kw)
+                torch.cuda.synchronize()
+                assert fused_moment_sweep.launches == before + 1
+                assert torch.equal(_bits(got), _bits(plain)), (warps, prune)
+    with pytest.raises(ValueError, match="warps_per_block"):
+        moment_planes(q, cand, sv, cn, gate=1.0, warps_per_block=32)
+
+
+def test_kernel_resources_on_card(cuda_device):
+    from repro_torch.kernels.fused_icp import (DEFAULT_CONFIG, FusedConfig,
+                                               fused_resources)
+    from repro_torch.kernels.nn_search import smem_bytes
+    nn = smem_bytes(cuda_device)
+    card = nn["card"]
+    assert card["registers"] > 0 and card["blocks_per_sm"] >= 1
+    assert card["static_shared_bytes"] == nn["total"]
+    assert card["max_threads_per_block"] >= nn["threads_per_block"]
+    assert 0.0 < card["occupancy"] <= 1.0
+    for warps in (2, 16):
+        for plane in (False, True):
+            res = fused_resources(FusedConfig(warps, True), plane=plane,
+                                  device=cuda_device)
+            c = res["card"]
+            assert 0 < c["registers"] <= 255
+            assert c["static_shared_bytes"] == res["static_shared_bytes"]
+            assert c["max_threads_per_block"] >= res["threads_per_block"]
+            assert c["blocks_per_sm"] >= 1 and 0.0 < c["occupancy"] <= 1.0
+    assert fused_resources(DEFAULT_CONFIG,
+                           device=cuda_device)["card"]["local_bytes"] == 0
+
+
+def test_make_frame_engine_gives_kernel_bits_on_card(cuda_device):
+    from repro_torch.kernels.nn_search import nn_search_kernel
+    rng = np.random.default_rng(22)
+    src = _uniform(rng, (2, 3000, 3), cuda_device, scale=30.0)
+    dst = _uniform(rng, (2, 20001, 3), cuda_device, scale=30.0)
+    T = torch.eye(4, device=cuda_device).repeat(2, 1, 1)
+    T[:, :3, 3] = torch.tensor([0.5, -0.3, 0.1], device=cuda_device)
+    nn_fn = ops.make_frame_engine(dst)
+    before = nn_search_kernel.launches
+    d2, idx = nn_fn(src, T)
+    torch.cuda.synchronize()
+    assert nn_search_kernel.launches == before + 1
+    d2_1, idx_1 = ops.nn_search_cuda(src, dst, T)
+    assert torch.equal(d2, d2_1) and torch.equal(idx, idx_1)

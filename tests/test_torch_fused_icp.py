@@ -280,7 +280,8 @@ def test_fused_plane_needs_normals_and_prune_runs(small_scene):
     for p in (ICPParams(max_iterations=6), plane):
         normals = (default_target_normals(d)
                    if p.minimizer == "point_to_plane" else None)
-        fns = [tf.make_fused_fn(grid, p, normals, prune=prune)
+        fns = [tf.make_fused_fn(grid, p, normals,
+                                config=tf.FusedConfig(prune=prune))
                for prune in (False, True)]
         r0, r1 = (icp_fixed_iterations(s, None, p._replace(fused=True),
                                        fused_fn=f) for f in fns)
