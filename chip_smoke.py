@@ -161,9 +161,31 @@ that fails raises. Phases:
      ``make_frame_engine`` with a ``T`` at B=1, 4096 x 32768 (the seq-0
      frame-0 pair, target padded with far-sentinel rows): the bits of
      ``nn_search_cuda``.
+ 12. The LM serving path (slice 8) at qwen2-0.5b's full width (494.03 M
+     parameters, random weights from ``lm.init_params_numpy(cfg, 0)``): (a)
+     the weights on the card, their bytes and ``max_memory_allocated``;
+     (b) the teacher-forced logits of 2 x 64 seeded tokens, on the card and
+     through the port's CPU path, held to a pasted JAX CPU run of the
+     reference on the same weights (constants below): max |logit diff| at
+     the pasted coordinates within 5e-2, the argmax equal wherever the
+     reference's top-2 gap exceeds it; (c) ``Engine.generate`` greedy at
+     the launcher's defaults (4 prompts of 32 tokens, 32 generated) and on
+     2 prompts of 1024 tokens (the ``q_block`` path, two blocks of 512), 16
+     generated: two engines the same tokens, the decode-vs-forward logit
+     difference within 0.1, the tokens the teacher-forced argmax of
+     ``forward`` except where its top-2 gap is under that difference;
+     prefill ms, decode ms a step, the host's ms to queue a step and
+     tokens/s, one decode step's device kernels, busy ms and idle share
+     (profiler) beside its byte bound (the bf16 weights, the KV cache and
+     the logits at HBM peak); the launcher ``repro_torch.launch.serve`` at
+     its defaults must print its tok/s line and the engine's tokens; (d)
+     ``vq_encode`` of 65,536 3-D latents against 8,192 codes through the
+     NN kernel: one launch, the plain version's indices and d², bit for
+     bit; ``rvq_encode`` at D=128 (4 books of 2,048) on the card, level-0
+     codes the CPU path's except on near-ties.
 
 Every kernel count is set to 0 just before each main-path run (phases 2, 3,
-5, 7, 8, 9, 10 and 11) and read just after. The last lines are the
+5, 7, 8, 9, 10, 11 and 12) and read just after. The last lines are the
 ``{"kernels": [...]}`` report, the card line from ``nvidia-smi`` and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2865,6 +2887,435 @@ def phase11(torch, np, scenes, fused_log):
     return out
 
 
+# Slice 8: the LM serving path at qwen2-0.5b's full width (24 layers,
+# d_model 896, 14 query and 2 KV heads of 64, d_ff 4864, vocab 151,936,
+# QKV bias, tied embeddings, rope theta 1e6, q_block 512), random weights
+# from lm.init_params_numpy(cfg, 0), and the VQ frontends through the NN
+# kernel. (b) holds the teacher-forced logits of 2 x 64 tokens from
+# np.random.default_rng(P12_SEED) to a JAX CPU run of the reference on the
+# same numpy weights (about 25 s and 5 GB on an 8-core CPU host):
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import jax, numpy as np
+#   import jax.numpy as jnp; from repro.configs import get_config
+#   from repro.models import lm; from repro_torch.models.lm import (
+#   init_params_numpy); cfg = get_config('qwen2-0.5b')
+#   p = jax.tree_util.tree_map(jnp.asarray, init_params_numpy(cfg, 0))
+#   t = np.random.default_rng(12).integers(0, cfg.vocab_size, (2, 64),
+#       dtype=np.int32)
+#   x = np.asarray(jax.jit(lm.forward, static_argnums=1)(p, cfg,
+#       jnp.asarray(t))[0]); s = np.sort(x, -1)
+#   print(x.argmax(-1).ravel().tolist(), (s[..., -1] - s[..., -2]).ravel()
+#         .tolist(), [float(x[c]) for c in p12_coords(x.argmax(-1))])"
+# with p12_coords below. The logits are fp32 casts of a bf16 product, so
+# top-2 ties are common (4 of the 128 positions here, 40 under 5e-2): the
+# argmax is held only where the reference's gap exceeds the tolerance.
+P12_ARCH = "qwen2-0.5b"
+P12_SEED = 12
+P12_B, P12_S = 2, 64
+P12_FIXED_S = (0, 21, 42, 63)
+P12_FIXED_V = (0, 1, 4096, 65536, 151935)
+P12_TOL = 5e-2      # max |logit - reference| at the pasted coordinates
+# max |decode-step logit - teacher-forced forward logit| in (c), 0.057-0.063
+# on an H100 80GB HBM3 at 700 W; a fixed bar, so a wrong decode cannot widen
+# the near-tie allowance it is checked with
+P12_DECODE_TOL = 0.1
+P12_VQ = (65536, 8192)     # 3-D latents x codebook entries
+P12_RVQ = (4, 1024, 128, 4, 2048)  # batch, frames, D, books, entries
+RVQ_NEAR_TIE = 1e-3
+P12_REF_ARGMAX = (
+    109405, 19066, 4080, 4080, 74787, 74787, 9463, 11462, 33357, 63450, 74787,
+    21722, 67348, 63450, 100387, 12963, 11462, 102321, 18326, 18326, 18326,
+    24876, 6183, 18326, 11462, 51311, 6183, 18326, 13737, 36331, 61019, 124715,
+    36331, 64611, 136301, 27072, 36331, 61019, 36331, 96367, 61019, 136751,
+    96367, 36331, 31312, 51311, 61019, 136751, 36331, 51311, 19262, 51311,
+    7977, 49552, 150801, 31810, 68837, 61888, 12875, 138894, 51311, 12875,
+    136751, 107243, 58074, 117884, 66617, 39265, 5767, 5767, 103537, 113098,
+    103537, 103537, 151911, 24979, 55308, 63368, 110636, 151372, 103765, 72269,
+    5906, 147898, 41710, 112488, 151372, 103765, 88571, 82993, 7202, 38228,
+    52590, 41710, 41710, 48701, 48701, 31356, 89676, 31356, 9930, 7202, 143791,
+    103765, 150530, 150530, 62487, 62487, 31356, 133818, 23189, 31356, 67490,
+    31356, 92405, 89136, 136009, 92405, 80624, 97181, 38194, 2072, 6389, 70480,
+    28633, 47382, 63368, 92405)
+P12_REF_GAP = (
+    0.03125, 0.09375, 0.078125, 0.015625, 0.015625, 0.03125, 0.125, 0.03125,
+    0.03125, 0.171875, 0.34375, 0.0625, 0.046875, 0.09375, 0.078125, 0.15625,
+    0.21875, 0.03125, 0.046875, 0.25, 0.359375, 0.046875, 0.140625, 0.21875,
+    0.078125, 0.140625, 0.015625, 0.140625, 0.03125, 0.125, 0.015625, 0.140625,
+    0.203125, 0.078125, 0.03125, 0.125, 0.046875, 0.0625, 0.109375, 0.15625,
+    0.15625, 0.15625, 0.09375, 0.125, 0.03125, 0.078125, 0.140625, 0.03125,
+    0.109375, 0.25, 0.296875, 0.109375, 0.03125, 0.171875, 0.0625, 0.0625,
+    0.0625, 0.15625, 0.09375, 0.015625, 0.046875, 0.109375, 0.3125, 0.046875,
+    0.0625, 0.015625, 0.296875, 0.0625, 0.046875, 0.09375, 0.140625, 0.0625,
+    0.015625, 0.15625, 0.078125, 0.09375, 0.09375, 0.0625, 0, 0.125, 0.109375,
+    0, 0.4375, 0.109375, 0.125, 0.109375, 0.03125, 0.171875, 0.03125, 0.03125,
+    0.34375, 0.0625, 0.09375, 0.34375, 0.25, 0.25, 0.09375, 0.078125, 0.15625,
+    0.09375, 0.125, 0, 0.03125, 0.03125, 0.265625, 0.015625, 0.59375, 0.0625,
+    0.171875, 0.1875, 0.09375, 0.09375, 0.109375, 0.078125, 0.171875, 0.046875,
+    0.109375, 0.140625, 0.21875, 0.015625, 0.25, 0, 0.015625, 0.03125, 0.09375,
+    0.015625, 0.046875, 0.25)
+P12_REF_LOGITS = (
+    2.515625, 2.765625, 2.578125, 2.5625, 2.515625, 2.546875, 2.734375,
+    2.453125, 2.46875, 2.671875, 2.84375, 2.765625, 2.53125, 2.703125, 2.5,
+    2.5625, 2.796875, 2.734375, 2.609375, 2.78125, 3.109375, 2.6875, 2.71875,
+    2.578125, 2.59375, 2.703125, 2.578125, 2.59375, 2.53125, 2.703125,
+    2.703125, 2.6875, 2.75, 2.671875, 2.546875, 2.59375, 2.578125, 2.5625,
+    2.6875, 2.71875, 2.640625, 2.578125, 2.609375, 2.703125, 2.4375, 2.671875,
+    2.78125, 2.625, 2.59375, 2.734375, 2.734375, 2.65625, 2.703125, 2.65625,
+    2.4375, 2.625, 2.421875, 2.640625, 2.75, 2.515625, 2.546875, 2.671875,
+    2.828125, 2.53125, 2.609375, 2.515625, 3.125, 2.578125, 2.46875, 2.578125,
+    2.609375, 2.53125, 2.796875, 2.734375, 2.640625, 2.578125, 2.59375,
+    2.546875, 2.640625, 2.609375, 2.515625, 2.625, 2.921875, 2.546875,
+    2.578125, 2.59375, 2.421875, 2.75, 2.5, 2.40625, 2.78125, 2.484375, 2.5,
+    2.8125, 2.828125, 2.703125, 2.546875, 2.609375, 2.671875, 2.484375,
+    2.515625, 2.5625, 2.46875, 2.453125, 2.78125, 2.46875, 3.09375, 2.4375,
+    2.84375, 2.609375, 2.65625, 2.453125, 2.625, 2.578125, 2.578125, 2.453125,
+    2.625, 2.625, 2.671875, 2.375, 2.765625, 2.625, 2.515625, 2.53125,
+    2.703125, 2.375, 2.53125, 2.75, -0.6015625, -0.59375, -0.353515625,
+    -0.19921875, 0.5625, -0.5234375, 0.423828125, -0.291015625, -0.271484375,
+    0.4140625, -0.30078125, -0.138671875, 0.57421875, -0.474609375, 1,
+    -0.80078125, -0.07421875, -0.0164794922, -0.4296875, 0.115234375,
+    0.8984375, -0.241210938, 0.9453125, 0.00531005859, -0.71484375,
+    -0.0524902344, 0.2109375, 0.213867188, 0.82421875, -0.279296875, -1.125,
+    1.1171875, -0.39453125, 0.330078125, 0.2421875, -0.63671875, 1.046875,
+    0.0471191406, 0.396484375, 0.158203125)
+
+
+def p12_coords(argmax):
+    """The (b, s, v) coordinates whose reference logits are pasted: the
+    reference's argmax at every position, then ``P12_FIXED_V`` at the
+    positions ``P12_FIXED_S``."""
+    b, s = argmax.shape
+    return ([(i, j, int(argmax[i, j])) for i in range(b) for j in range(s)]
+            + [(i, j, v) for i in range(b) for j in P12_FIXED_S
+               for v in P12_FIXED_V])
+
+
+def hold_logits(np, name, logits):
+    """(b): ``logits`` (B, S, V) against the pasted reference: max |diff|
+    at the pasted coordinates within ``P12_TOL``, the argmax equal
+    wherever the reference's top-2 gap exceeds it."""
+    x = logits.float().cpu().numpy()
+    ref_argmax = np.array(P12_REF_ARGMAX).reshape(P12_B, P12_S)
+    ref_gap = np.array(P12_REF_GAP).reshape(P12_B, P12_S)
+    idx = tuple(np.array(p12_coords(ref_argmax)).T)
+    err = float(np.abs(x[idx] - np.array(P12_REF_LOGITS)).max())
+    decided = ref_gap > P12_TOL
+    flips = x.argmax(-1) != ref_argmax
+    bad = int((flips & decided).sum())
+    check(err <= P12_TOL, f"phase12 b {name}: max |logit - reference| "
+          f"{err} > {P12_TOL}")
+    check(bad == 0, f"phase12 b {name}: argmax differs from the reference "
+          f"at {bad} positions whose reference top-2 gap exceeds {P12_TOL}")
+    log(f"phase12 b {name}: max |logit - JAX reference| {err:.6f} over "
+        f"{len(P12_REF_LOGITS)} coordinates (tolerance {P12_TOL}); argmax "
+        f"equal at all {int(decided.sum())} positions whose reference gap "
+        f"exceeds it ({int(flips.sum())} of {flips.size} flips, all on "
+        f"near-ties)")
+    return dict(max_abs_logit_err=err, argmax_flips=int(flips.sum()),
+                decided=int(decided.sum()))
+
+
+def serve_logits(torch, lm, engine, prompts, gen):
+    """``engine.generate(prompts, gen)`` with the logits of its prefill and
+    of each decode step kept (the module functions the engine calls are
+    wrapped for the call): -> (tokens (B, gen), logits (B, gen, V))."""
+    kept = []
+    originals = lm.prefill, lm.decode_step
+
+    def keep(fn):
+        def wrapped(*args, **kwargs):
+            logits, cache = fn(*args, **kwargs)
+            kept.append(logits.float())
+            return logits, cache
+        return wrapped
+
+    lm.prefill, lm.decode_step = (keep(f) for f in originals)
+    try:
+        tokens = engine.generate(prompts, gen)
+    finally:
+        lm.prefill, lm.decode_step = originals
+    return tokens, torch.stack(kept, dim=1)
+
+
+def teacher_forced(torch, lm, model, cfg, name, prompts, tokens, steps):
+    """The reference's contract: generated tokens are the argmax of
+    ``forward`` over prompt + generated tokens, except where that forward's
+    top-2 gap is under the decode-vs-forward logit difference."""
+    s = prompts.shape[1]
+    logits, _ = lm.forward(model, cfg, tokens=torch.cat([prompts, tokens],
+                                                        dim=1))
+    tf = logits[:, s - 1:-1]
+    diff = float((steps - tf).abs().max())
+    top2 = tf.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    check(diff <= P12_DECODE_TOL, f"phase12 c {name}: max |decode - "
+          f"forward logit| {diff} > {P12_DECODE_TOL}")
+    mism = tf.argmax(-1) != tokens
+    unexplained = int((mism & (gap >= diff)).sum())
+    where = [(int(b), int(i), float(gap[b, i]))
+             for b, i in mism.nonzero().tolist()]
+    check(unexplained == 0, f"phase12 c {name}: {unexplained} generated "
+          f"tokens differ from the teacher-forced argmax where its top-2 gap "
+          f"is >= the decode-vs-forward difference {diff}")
+    log(f"phase12 c {name}: tokens = teacher-forced argmax except at "
+        f"{len(where)} positions (b, step, gap) {where}, each gap under the "
+        f"decode-vs-forward logit difference {diff:.6f} (bar "
+        f"{P12_DECODE_TOL})")
+    return dict(decode_vs_forward=diff, mismatches=where)
+
+
+def decode_timing(torch, lm, model, cfg, prompts, steps):
+    """(prefill ms, decode ms a step, host issue ms a step, the cache) of
+    ``steps`` decode steps after a prefill: CUDA events around the loop,
+    and the host clock from its start to the last step's return (before
+    the sync), the time the host takes to queue a step."""
+    b, s = prompts.shape
+    max_len = s + steps + 1
+    prefill_ms = time_ms(torch, lambda: lm.prefill(
+        model, cfg, tokens=prompts, max_len=max_len), warmup=1, reps=5)
+    logits, cache = lm.prefill(model, cfg, tokens=prompts, max_len=max_len)
+    tok = logits.argmax(-1)
+    lm.decode_step(model, cfg, s, [dict(c) for c in cache], token=tok)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = lm.decode_step(model, cfg, s + i, cache, token=tok)
+        tok = logits.argmax(-1)
+    issue_ms = (time.perf_counter() - t0) * 1e3 / steps
+    end.record()
+    end.synchronize()
+    return prefill_ms, start.elapsed_time(end) / steps, issue_ms, cache
+
+
+def phase12(torch, np):
+    """The LM serving path at full width and the VQ frontends (slice 8)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.nn_search import nn_search_kernel
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import lm
+    from repro_torch.serve import modality
+    from repro_torch.serve.engine import Engine
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(P12_ARCH)
+    out = dict(arch=P12_ARCH)
+    totals = dict(nn_search=0, candidate_sweep=0, fused_moment_sweep=0,
+                  moment_sweep=0)
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    # (a) weights
+    t0 = time.perf_counter()
+    tree = lm.init_params_numpy(cfg, 0)
+    init_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = lm.params_from_reference(tree, cfg, dev)
+    n_params, w_bytes = lm.param_count(model), lm.param_bytes(model)
+    check(round(n_params / 1e6, 2) == 494.03, f"phase12 a: {n_params} "
+          f"parameters, expected 494.03 M")
+    out["a"] = dict(params=n_params, weight_bytes=w_bytes, init_s=init_s,
+                    load_peak_bytes=torch.cuda.max_memory_allocated(dev))
+    log(f"phase12 a: {P12_ARCH} at full width, {n_params / 1e6:.2f} M "
+        f"parameters, {w_bytes / 1e9:.4f} GB of weights on the card (bf16 "
+        f"kernels, biases and table, fp32 norm scales); numpy init "
+        f"{init_s:.1f} s; max_memory_allocated "
+        f"{out['a']['load_peak_bytes'] / 1e9:.4f} GB")
+
+    # (b) teacher-forced logits against the JAX reference, card and CPU
+    tokens = np.random.default_rng(P12_SEED).integers(
+        0, cfg.vocab_size, (P12_B, P12_S), dtype=np.int32)
+    tok = torch.from_numpy(tokens)
+    logits_card, _ = lm.forward(model, cfg, tokens=tok.to(dev))
+    out["b_cuda"] = hold_logits(np, "cuda", logits_card)
+    cpu_model = lm.params_from_reference(tree, cfg, "cpu")
+    del tree
+    t0 = time.perf_counter()
+    logits_cpu, _ = lm.forward(cpu_model, cfg, tokens=tok)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    del cpu_model
+    out["b_cpu"] = hold_logits(np, "cpu", logits_cpu)
+    card_vs_cpu = float((logits_card.cpu() - logits_cpu).abs().max())
+    out["b_cpu"].update(forward_ms=cpu_ms, card_vs_cpu=card_vs_cpu)
+    log(f"phase12 b: card vs the port's CPU path, max |logit diff| over all "
+        f"{logits_cpu.numel()} logits {card_vs_cpu:.6f}; the CPU forward "
+        f"took {cpu_ms:.0f} ms (host clock)")
+    del logits_card, logits_cpu
+
+    # (c) serving: the launcher's defaults, then 2 x 1024-token prompts
+    runs = (("b4_p32_g32", serve_launch.prompt_tokens(1, 4, 32,
+                                                      cfg.vocab_size), 32),
+            ("b2_p1024_g16", np.random.default_rng(P12_SEED + 1).integers(
+                0, cfg.vocab_size, (2, 1024), dtype=np.int32), 16))
+    out["c"], served = {}, {}
+    for name, prompts, gen in runs:
+        prompts = torch.from_numpy(prompts).to(dev)
+        b, s = prompts.shape
+        engine = Engine(cfg, model, max_len=s + gen, device=dev)
+        (toks, steps), wall, launches = counted(
+            torch, lambda: serve_logits(torch, lm, engine, prompts, gen))
+        add(launches)
+        check(sum(launches.values()) == 0, f"phase12 c {name}: the LM path "
+              f"launched port kernels {launches}")
+        again = Engine(cfg, model, max_len=s + gen, device=dev).generate(
+            prompts, gen)
+        check(bool(torch.equal(toks, again)), f"phase12 c {name}: two "
+              f"engines gave different tokens")
+        served[name] = toks
+        row = teacher_forced(torch, lm, model, cfg, name, prompts, toks,
+                             steps)
+        prefill_ms, step_ms, issue_ms, cache = decode_timing(
+            torch, lm, model, cfg, prompts, gen - 1)
+        row.update(batch=b, prompt=s, gen=gen, wall_ms=wall,
+                   tokens_per_s=b * gen / wall * 1e3, prefill_ms=prefill_ms,
+                   decode_ms_per_token=step_ms, decode_issue_ms=issue_ms,
+                   decode_tokens_per_s=b / step_ms * 1e3,
+                   q_block=s > cfg.q_block and s % cfg.q_block == 0)
+        # one decode step: profiler kernels and busy ms, and its byte bound
+        pos = s + gen - 1
+        nxt = toks[:, -1]
+        kernels, busy, host_launches = device_profile(
+            torch, lambda: lm.decode_step(model, cfg, pos, cache, token=nxt))
+        kv_bytes = sum(c[k].numel() * c[k].element_size() for c in cache
+                       for k in ("k", "v"))
+        step_bytes = w_bytes + kv_bytes + b * cfg.vocab_size * 4
+        bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+        idle = None if busy is None else 1 - busy / step_ms
+        row.update(step_kernels=kernels, step_busy_ms=busy,
+                   step_host_launches=host_launches, step_idle=idle,
+                   step_bytes=step_bytes, step_bound_ms=bound_ms)
+        out["c"][name] = row
+        blocks = (f" ({s // cfg.q_block} q_blocks of {cfg.q_block})"
+                  if row["q_block"] else "")
+        profiled = ("no device activity recorded" if busy is None else
+                    f"{busy:.4f} ms busy, idle {idle:.1%}")
+        log(f"phase12 c {name}: B={b} prompt {s}{blocks} gen {gen} | "
+            f"generate {wall:.1f} ms wall, {row['tokens_per_s']:.1f} tok/s | "
+            f"prefill {prefill_ms:.3f} ms | decode {step_ms:.3f} ms a step "
+            f"({row['decode_tokens_per_s']:.1f} tok/s; the host queues a "
+            f"step in {issue_ms:.3f} ms) | one step: "
+            f"{kernels} device kernels ({host_launches} host launches), "
+            f"{profiled} | byte bound {bound_ms:.4f} ms "
+            f"({step_bytes / 1e9:.4f} GB: weights {w_bytes / 1e9:.4f} GB, KV "
+            f"{kv_bytes / 1e6:.2f} MB), {bound_ms / step_ms:.1%} of the "
+            f"step")
+        del cache, steps
+    out["c_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    log(f"phase12 c: max_memory_allocated over (a)-(c) "
+        f"{out['c_peak_bytes'] / 1e9:.4f} GB")
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        launched, wall, launches = counted(torch, lambda: serve_launch.main(
+            ["--device", "cuda:0"]))
+    add(launches)
+    lines = [ln for ln in text.getvalue().splitlines() if "tok/s" in ln]
+    check(len(lines) == 1, f"phase12 c launcher: no tok/s line in "
+          f"{text.getvalue()!r}")
+    check(bool(torch.equal(launched, served["b4_p32_g32"])), "phase12 c "
+          "launcher: its tokens differ from the engine's on the same weights "
+          "and prompts")
+    out["c"]["launcher"] = dict(line=lines[0], wall_ms=wall)
+    log(f"phase12 c launcher (repro_torch.launch.serve at its defaults): "
+        f"{lines[0].strip()} | {wall:.0f} ms with its weight init")
+
+    # (d) VQ through the NN kernel: 3-D latents, then RVQ at D=128
+    n, k = P12_VQ
+    book, lat = modality.stub_normals(P12_SEED, (k, 3), (n, 3), device=dev)
+    captured = []
+    orig = ops.nn_search_kernel
+
+    def kernel_site(src_aug, dst_aug):
+        res = orig(src_aug, dst_aug)
+        captured.append((src_aug.clone(), dst_aug.clone(),
+                         [r.clone() for r in res]))
+        return res
+
+    ops.nn_search_kernel = kernel_site
+    try:
+        (codes, quant), wall, launches = counted(
+            torch, lambda: modality.vq_encode(lat, book, use_kernel=True))
+    finally:
+        ops.nn_search_kernel = orig
+    add(launches)
+    check(launches["nn_search"] == 1 and len(captured) == 1,
+          f"phase12 d: vq_encode launched nn_search {launches['nn_search']} "
+          f"times, expected 1")
+    src_aug, dst_aug, (d2_k, idx_k) = captured[0]
+    d2_p, idx_p = ref.blocked_argmin(src_aug, dst_aug)
+    mism = int((idx_k != idx_p).sum())
+    max_d2 = float((d2_k - d2_p).abs().max())
+    check(mism == 0 and max_d2 == 0.0, f"phase12 d: the NN kernel's indices "
+          f"and d2 differ from the plain version's ({mism} indices, max "
+          f"|d2| {max_d2})")
+    check(bool(torch.equal(codes, idx_p[:n])), "phase12 d: vq_encode's "
+          "codes are not the plain version's indices")
+    check(bool(torch.equal(quant, book[idx_p[:n].long()])), "phase12 d: "
+          "vq_encode's quantised latents are not the codebook rows")
+    codes_cpu, _ = modality.vq_encode(lat.cpu(), book.cpu(), use_kernel=True)
+    cpu_mism = int((codes_cpu != codes.cpu()).sum())
+    np_, mp_ = src_aug.shape[-1], dst_aug.shape[-1]
+    kern = device_ms(torch, lambda: nn_search_kernel(src_aug, dst_aug))
+    plain = device_ms(torch, lambda: ref.blocked_argmin(src_aug, dst_aug))
+    lib = device_ms(torch, lambda: torch.matmul(src_aug.mT,
+                                                dst_aug).min(dim=-1))
+    bound_ms, bound_by = bound(1, np_, mp_)
+    out["d_vq"] = dict(shape=[n, k], padded=[np_, mp_], launches=launches,
+                       idx_mismatch=mism, max_abs_d2=max_d2,
+                       cpu_code_mismatch=cpu_mism, wall_ms=wall,
+                       kernel_ms=kern[0], kernel_ms_spread=kern[1:3],
+                       plain_ms=plain[0], library_ms=lib[0],
+                       bound_ms=bound_ms, bound_by=bound_by)
+    log(f"phase12 d vq_encode: {n} 3-D latents x {k} codes (padded {np_} x "
+        f"{mp_}) | {launches['nn_search']} NN launch, indices and d2 the "
+        f"plain version's bits ({mism} mismatches, max |d2| {max_d2}); "
+        f"codes = plain indices; {cpu_mism} codes differ from the CPU plain "
+        f"path | kernel {fmt_ms(kern)} ms, plain {fmt_ms(plain)} ms, "
+        f"matmul+min {fmt_ms(lib)} ms, bound {bound_ms:.4f} ms ({bound_by}),"
+        f" {bound_ms / kern[0]:.1%} of bound | vq_encode {wall:.3f} ms wall")
+    bsz, frames, d, books, entries = P12_RVQ
+    (rcodes, recon), wall, launches = counted(
+        torch, lambda: modality.musicgen_frame_stub(
+            P12_SEED, bsz, frames, d_latent=d, n_books=books,
+            codebook_size=entries, device=dev))
+    add(launches)
+    check(tuple(rcodes.shape) == (books, bsz, frames) and bool(
+        torch.isfinite(recon).all()) and int(rcodes.min()) >= 0
+          and int(rcodes.max()) < entries, "phase12 d rvq: bad codes or "
+          "reconstruction")
+    books_t, lat_t = modality.stub_normals(P12_SEED, (books, entries, d),
+                                           (bsz, frames, d), device="cpu")
+    first, _ = modality.vq_encode(lat_t, books_t[0])
+    diff = (first != rcodes[0].cpu()).flatten().nonzero()[:, 0]
+    lat64 = lat_t.reshape(-1, d).double()
+    b64 = books_t[0].double()
+    a, c = first.flatten()[diff].long(), rcodes[0].cpu().flatten()[diff].long()
+    gaps = ((lat64[diff] - b64[a]) ** 2).sum(-1) - ((lat64[diff] - b64[c])
+                                                    ** 2).sum(-1)
+    worst = float(gaps.abs().max()) if len(diff) else 0.0
+    check(worst <= RVQ_NEAR_TIE, f"phase12 d rvq: level-0 codes differ from "
+          f"the CPU's beyond near-ties (d2 gap {worst})")
+    out["d_rvq"] = dict(shape=list(rcodes.shape), wall_ms=wall,
+                        level0_cpu_mismatch=len(diff), worst_gap=worst)
+    log(f"phase12 d rvq_encode: {bsz} x {frames} latents, D={d}, {books} "
+        f"books of {entries} on the card (plain matmul expansion, no port "
+        f"kernel) | {wall:.1f} ms wall | level-0 codes vs the CPU path: "
+        f"{len(diff)} differ (largest d2 gap {worst:.2e}, near-tie bound "
+        f"{RVQ_NEAR_TIE})")
+    out["launch_totals"] = totals
+    check(totals["nn_search"] > 0, "phase12: never launched nn_search")
+    log(f"phase12: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def compare_minimizers(report):
     """Log each point-to-plane run of phase 7 beside the point-to-point run
     of the same path (phases 2, 3 and 5): iterations and wall ms per
@@ -2966,8 +3417,9 @@ def main(argv=None):
     report["phase9"], fleet = phase9(torch, np)
     report["phase10"] = phase10(torch, np, scenes, fleet)
     report["phase11"] = phase11(torch, np, scenes, logs["fused_icp"])
+    report["phase12"] = phase12(torch, np)
     totals = {k: v + sum(report[f"phase{p}"]["launch_totals"][k]
-                         for p in (7, 8, 9, 10, 11))
+                         for p in (7, 8, 9, 10, 11, 12))
               for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(

@@ -1,5 +1,6 @@
 """Data path of the port: synthetic scenes, shape buckets, voxel grids,
-normals, the rolling submap and sensor-fault injectors."""
+normals, the rolling submap and sensor-fault injectors; ``tokens`` is the
+legacy LM stack's synthetic token stream."""
 from repro_torch.data.corruption import (FAULT_NAMES, FaultSpec,
                                          apply_faults, fault_seed,
                                          parse_fault_spec)

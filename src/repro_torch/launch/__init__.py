@@ -1,1 +1,2 @@
-"""Entry points of the port (``python -m repro_torch.launch.registration``)."""
+"""Entry points of the port (``python -m repro_torch.launch.registration``,
+``python -m repro_torch.launch.serve``)."""

@@ -8,6 +8,7 @@ the same types.
 """
 import numpy as np
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.data import corruption as jc
 from repro_torch.data import corruption as tc

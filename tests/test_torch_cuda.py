@@ -735,3 +735,51 @@ def test_make_frame_engine_gives_kernel_bits_on_card(cuda_device):
     assert nn_search_kernel.launches == before + 1
     d2_1, idx_1 = ops.nn_search_cuda(src, dst, T)
     assert torch.equal(d2, d2_1) and torch.equal(idx, idx_1)
+
+
+# -- slice 8: the LM serving path ---------------------------------------------
+
+def test_smoke_lm_on_card_matches_cpu(cuda_device):
+    """qwen2-0.5b's smoke config on the card against the same weights on the
+    CPU: logits within 1e-2 (the reference's decode tolerance) with the
+    argmax equal where the CPU's top-2 gap exceeds it; the card's greedy
+    tokens are its own forward's teacher-forced argmax."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+    cfg = get_smoke("qwen2-0.5b")
+    tree = lm.init_params_numpy(cfg, seed=0)
+    card = lm.params_from_reference(tree, cfg, cuda_device)
+    cpu = lm.params_from_reference(tree, cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 40), dtype=np.int32))
+    got, _ = lm.forward(card, cfg, tokens=toks.to(cuda_device))
+    want, _ = lm.forward(cpu, cfg, tokens=toks)
+    got = got.cpu()
+    assert (got - want).abs().max().item() <= 1e-2
+    top2 = want.topk(2, dim=-1).values
+    decided = top2[..., 0] - top2[..., 1] > 1e-2
+    assert torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided])
+    out = Engine(cfg, card, max_len=40, device=cuda_device).generate(
+        toks[:, :24], 16)
+    logits, _ = lm.forward(card, cfg, tokens=torch.cat(
+        [toks[:, :24].to(cuda_device), out], dim=1))
+    assert torch.equal(logits[:, 23:-1].argmax(-1).to(torch.int32), out)
+
+
+def test_vq_encode_3d_on_card_gives_plain_bits(cuda_device):
+    from repro_torch.device import round_up
+    from repro_torch.kernels.nn_search import nn_search_kernel
+    from repro_torch.serve import modality
+    book, lat = modality.stub_normals(5, (3000, 3), (2, 5000, 3),
+                                      device=cuda_device)
+    before = nn_search_kernel.launches
+    codes, quant = modality.vq_encode(lat, book, use_kernel=True)
+    torch.cuda.synchronize()
+    assert nn_search_kernel.launches == before + 1
+    flat = lat.reshape(-1, 3)
+    _, idx = ref.blocked_argmin(
+        ref.augment_source(flat, pad_to=round_up(len(flat), BLOCK_N)),
+        ref.augment_target(book, pad_to=round_up(len(book), TILE_M)))
+    assert torch.equal(codes, idx[:len(flat)].reshape(2, 5000))
+    assert torch.equal(quant, book[codes.long()])

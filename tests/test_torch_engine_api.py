@@ -16,6 +16,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import repro.data.collate as j_collate
 import repro.data.pointcloud as j_pointcloud
@@ -250,6 +251,8 @@ def test_import_leaves_jax_and_repro_out():
             "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
             "import repro_torch.kernels.build, repro_torch.core.baseline\n"
             "import repro_torch.kernels.fused_icp, repro_torch.core.pyramid\n"
+            "import repro_torch.launch.serve, repro_torch.examples.serve_lm\n"
+            "import repro_torch.serve.modality, repro_torch.data.tokens\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.core import icp_fixed_iterations as j_icp_fixed
 from repro.core.icp import ICPParams as JParams

@@ -28,6 +28,7 @@ The ``distributed`` engine's per-frame loop meets the k-d tree's bands.
 """
 import numpy as np
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import repro.launch.registration as jlaunch
 import repro.serve.registration_service as jservice

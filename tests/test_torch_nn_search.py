@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.core.nn_search import nn_search as j_nn_search
 from repro.kernels.ops import nn_search_pallas

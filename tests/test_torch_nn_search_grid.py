@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.data.voxelize import build_voxel_grid as j_build
 from repro.kernels.nn_search_grid import nn_search_grid_pallas

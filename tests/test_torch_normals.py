@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import repro.core  # noqa: F401  (imports repro.data.normals in order)
 from repro.data.normals import NormalParams as JNormalParams

@@ -28,6 +28,7 @@ requests, diagnostics, pose bits and submap state on both sides.
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import repro.core  # noqa: F401  (repro.core before repro.data.normals)
 import repro.core.odometry as jod

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.core import FppsICP as JFppsICP
 from repro.core.icp import ICPParams as JParams

@@ -33,6 +33,7 @@ for the (4, 256, 1024) batch that the service and every single-pair
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import repro.core  # noqa: F401  (repro.core before repro.data.normals)
 from repro.core import ICPParams as JICPParams

@@ -29,6 +29,7 @@ device (D=1).
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 import repro.core  # noqa: F401  (repro.core before repro.data.normals)
 from repro.core import ICPParams as JICPParams

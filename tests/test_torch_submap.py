@@ -15,6 +15,7 @@ lattice, at a roomy and at a saturating capacity. Held to:
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401
 
 from repro.data import submap as js
 from repro_torch.data import submap as ts
