@@ -183,9 +183,31 @@ that fails raises. Phases:
      NN kernel: one launch, the plain version's indices and d², bit for
      bit; ``rvq_encode`` at D=128 (4 books of 2,048) on the card, level-0
      codes the CPU path's except on near-ties.
+ 13. The recurrent block kinds (slice 9, ``models/ssm.py``) at full width,
+     random weights from ``lm.init_params_numpy(cfg, 0)``: mamba2-780m (48
+     SSD layers, 780.15 M parameters) and recurrentgemma-9b cut from 38 to
+     5 layers (rglru, rglru, local_attn, rglru, rglru; 2,174.92 M
+     parameters). For each: (a) the weights on the card, their bytes and
+     ``max_memory_allocated``; (b) the teacher-forced logits of 2 x 64
+     seeded tokens, on the card and through the port's CPU path, held to
+     a pasted JAX CPU run of the reference (constants below) within a bar
+     fixed before the first card run (0.3 and 0.15), the argmax equal
+     wherever the reference's top-2 gap exceeds it; (c) ``Engine.generate``
+     at the launcher's defaults (4 x 32 + 32) and on 2 x 1024 + 16
+     (mamba2: four SSD chunks) or 2 x 2040 + 16 (recurrentgemma: past the
+     2048-slot ring of its local_attn layer, whose positions are checked),
+     held as in phase 12 with decode-vs-forward bars 0.4 and 0.25; prefill
+     ms, decode ms a step, tokens/s, one decode step's device kernels,
+     busy ms and idle share beside its byte bound (the weights, the
+     recurrent states read and written, the KV ring, the logits); peak
+     memory; then the launcher at its defaults (``--arch``, the full
+     config: all 38 of recurrentgemma-9b's layers, 9,396.41 M parameters),
+     which must print its tok/s line (mamba2: the engine's tokens). No port
+     kernel runs on this path (the reference's SSD and RG-LRU are XLA ops):
+     every count must stay 0.
 
 Every kernel count is set to 0 just before each main-path run (phases 2, 3,
-5, 7, 8, 9, 10, 11 and 12) and read just after. The last lines are the
+5, 7, 8, 9, 10, 11, 12 and 13) and read just after. The last lines are the
 ``{"kernels": [...]}`` report, the card line from ``nvidia-smi`` and
 ``{"ok": true, "device": {...}}``.
 """
@@ -2979,34 +3001,39 @@ P12_REF_LOGITS = (
     0.0471191406, 0.396484375, 0.158203125)
 
 
-def p12_coords(argmax):
+def p12_coords(argmax, fixed_v=P12_FIXED_V):
     """The (b, s, v) coordinates whose reference logits are pasted: the
-    reference's argmax at every position, then ``P12_FIXED_V`` at the
+    reference's argmax at every position, then ``fixed_v`` at the
     positions ``P12_FIXED_S``."""
     b, s = argmax.shape
     return ([(i, j, int(argmax[i, j])) for i in range(b) for j in range(s)]
             + [(i, j, v) for i in range(b) for j in P12_FIXED_S
-               for v in P12_FIXED_V])
+               for v in fixed_v])
 
 
-def hold_logits(np, name, logits):
-    """(b): ``logits`` (B, S, V) against the pasted reference: max |diff|
-    at the pasted coordinates within ``P12_TOL``, the argmax equal
-    wherever the reference's top-2 gap exceeds it."""
+P12_REF = dict(tag="phase12 b", tol=P12_TOL, argmax=P12_REF_ARGMAX,
+               gap=P12_REF_GAP, logits=P12_REF_LOGITS, fixed_v=P12_FIXED_V)
+
+
+def hold_logits(np, name, logits, ref=P12_REF):
+    """(b): ``logits`` (B, S, V) against a pasted reference (``ref``: its
+    argmax, top-2 gaps and logits at ``p12_coords``, the tolerance and the
+    log tag): max |diff| at the pasted coordinates within the tolerance,
+    the argmax equal wherever the reference's top-2 gap exceeds it."""
     x = logits.float().cpu().numpy()
-    ref_argmax = np.array(P12_REF_ARGMAX).reshape(P12_B, P12_S)
-    ref_gap = np.array(P12_REF_GAP).reshape(P12_B, P12_S)
-    idx = tuple(np.array(p12_coords(ref_argmax)).T)
-    err = float(np.abs(x[idx] - np.array(P12_REF_LOGITS)).max())
-    decided = ref_gap > P12_TOL
+    tag, tol = ref["tag"], ref["tol"]
+    ref_argmax = np.array(ref["argmax"]).reshape(P12_B, P12_S)
+    ref_gap = np.array(ref["gap"]).reshape(P12_B, P12_S)
+    idx = tuple(np.array(p12_coords(ref_argmax, ref["fixed_v"])).T)
+    err = float(np.abs(x[idx] - np.array(ref["logits"])).max())
+    decided = ref_gap > tol
     flips = x.argmax(-1) != ref_argmax
     bad = int((flips & decided).sum())
-    check(err <= P12_TOL, f"phase12 b {name}: max |logit - reference| "
-          f"{err} > {P12_TOL}")
-    check(bad == 0, f"phase12 b {name}: argmax differs from the reference "
-          f"at {bad} positions whose reference top-2 gap exceeds {P12_TOL}")
-    log(f"phase12 b {name}: max |logit - JAX reference| {err:.6f} over "
-        f"{len(P12_REF_LOGITS)} coordinates (tolerance {P12_TOL}); argmax "
+    check(err <= tol, f"{tag} {name}: max |logit - reference| {err} > {tol}")
+    check(bad == 0, f"{tag} {name}: argmax differs from the reference at "
+          f"{bad} positions whose reference top-2 gap exceeds {tol}")
+    log(f"{tag} {name}: max |logit - JAX reference| {err:.6f} over "
+        f"{len(ref['logits'])} coordinates (tolerance {tol}); argmax "
         f"equal at all {int(decided.sum())} positions whose reference gap "
         f"exceeds it ({int(flips.sum())} of {flips.size} flips, all on "
         f"near-ties)")
@@ -3036,10 +3063,12 @@ def serve_logits(torch, lm, engine, prompts, gen):
     return tokens, torch.stack(kept, dim=1)
 
 
-def teacher_forced(torch, lm, model, cfg, name, prompts, tokens, steps):
+def teacher_forced(torch, lm, model, cfg, name, prompts, tokens, steps,
+                   tol=P12_DECODE_TOL, tag="phase12 c"):
     """The reference's contract: generated tokens are the argmax of
     ``forward`` over prompt + generated tokens, except where that forward's
-    top-2 gap is under the decode-vs-forward logit difference."""
+    top-2 gap is under the decode-vs-forward logit difference, which must
+    be within ``tol``."""
     s = prompts.shape[1]
     logits, _ = lm.forward(model, cfg, tokens=torch.cat([prompts, tokens],
                                                         dim=1))
@@ -3047,19 +3076,18 @@ def teacher_forced(torch, lm, model, cfg, name, prompts, tokens, steps):
     diff = float((steps - tf).abs().max())
     top2 = tf.topk(2, dim=-1).values
     gap = top2[..., 0] - top2[..., 1]
-    check(diff <= P12_DECODE_TOL, f"phase12 c {name}: max |decode - "
-          f"forward logit| {diff} > {P12_DECODE_TOL}")
+    check(diff <= tol, f"{tag} {name}: max |decode - forward logit| {diff} "
+          f"> {tol}")
     mism = tf.argmax(-1) != tokens
     unexplained = int((mism & (gap >= diff)).sum())
     where = [(int(b), int(i), float(gap[b, i]))
              for b, i in mism.nonzero().tolist()]
-    check(unexplained == 0, f"phase12 c {name}: {unexplained} generated "
+    check(unexplained == 0, f"{tag} {name}: {unexplained} generated "
           f"tokens differ from the teacher-forced argmax where its top-2 gap "
           f"is >= the decode-vs-forward difference {diff}")
-    log(f"phase12 c {name}: tokens = teacher-forced argmax except at "
+    log(f"{tag} {name}: tokens = teacher-forced argmax except at "
         f"{len(where)} positions (b, step, gap) {where}, each gap under the "
-        f"decode-vs-forward logit difference {diff:.6f} (bar "
-        f"{P12_DECODE_TOL})")
+        f"decode-vs-forward logit difference {diff:.6f} (bar {tol})")
     return dict(decode_vs_forward=diff, mismatches=where)
 
 
@@ -3074,7 +3102,8 @@ def decode_timing(torch, lm, model, cfg, prompts, steps):
         model, cfg, tokens=prompts, max_len=max_len), warmup=1, reps=5)
     logits, cache = lm.prefill(model, cfg, tokens=prompts, max_len=max_len)
     tok = logits.argmax(-1)
-    lm.decode_step(model, cfg, s, [dict(c) for c in cache], token=tok)
+    lm.decode_step(model, cfg, s, [dict(c) if isinstance(c, dict) else c
+                                   for c in cache], token=tok)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -3316,6 +3345,395 @@ def phase12(torch, np):
     return out
 
 
+# Slice 9: the recurrent block kinds (models/ssm.py) at full width, random
+# weights from lm.init_params_numpy(cfg, 0): mamba2-780m at full depth (48
+# SSD layers, d_model 1536, d_inner 3072, 48 heads of 64, d_state 128,
+# chunk 256, conv 4, vocab 50,280, tied; 780.15 M parameters) and
+# recurrentgemma-9b at full width (d_model 4096, lru_width 4096, 16 MQA
+# heads of 256, GeGLU d_ff 12,288, vocab 256,000 tied, window 2048, soft
+# cap 30) with its depth cut from 38 to 5 layers: one rglru, rglru,
+# local_attn period and the two-layer rglru suffix, the plan of the full
+# 38 = 12 x 3 + 2 (2,174.92 M parameters; the 38 layers' 37.6 GB of fp32
+# numpy weights put the JAX CPU reference run below out of reach; the
+# launcher in (c) serves all 38 on the card). (b) holds the teacher-forced
+# logits of 2 x 64 tokens from np.random.default_rng(P13_SEED) to a JAX
+# CPU run of the reference on the same numpy weights, the leaves it casts
+# to bf16 at use handed over as bf16 (the same bits; 25-40 s and up to
+# ~14 GB on an 8-core CPU host), for arch in P13_ARCHS:
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "import dataclasses, jax
+#   import numpy as np, jax.numpy as jnp; from chip_smoke import *
+#   from repro.configs import get_config; from repro.models import lm
+#   from repro_torch.models.lm import init_params_numpy
+#   arch = 'mamba2-780m'; cfg = dataclasses.replace(get_config(arch),
+#       n_layers=P13_LAYERS[arch])
+#   def leaf(path, a):
+#       n = [k.key for k in path]; bf = n[-1] in ('kernel', 'bias',
+#           'table') and not {'w_a', 'w_i'} & set(n)
+#       return jnp.asarray(a, jnp.bfloat16 if bf else jnp.float32)
+#   p = jax.tree_util.tree_map_with_path(leaf, init_params_numpy(cfg, 0))
+#   t = np.random.default_rng(P13_SEED).integers(0, cfg.vocab_size,
+#       (2, 64), dtype=np.int32)
+#   x = np.asarray(jax.jit(lm.forward, static_argnums=1)(p, cfg,
+#       jnp.asarray(t))[0]); s = np.sort(x, -1)
+#   print(x.argmax(-1).ravel().tolist(), (s[..., -1] - s[..., -2]).ravel()
+#         .tolist(), [float(x[c]) for c in p12_coords(x.argmax(-1),
+#         P13_FIXED_V[arch])])"
+# The bars were fixed before the first card run, from the port's CPU path
+# on the same weights and tokens against these constants (the forward of
+# lm.params_from_reference(tree, cfg, "cpu")): mamba2-780m 0.15625 at the
+# coordinates (0.25391 over all logits, whose largest is 4.125; the
+# reference itself moves by 0.13281 when its chunk is 16 in place of 256,
+# the same function, and its per-layer outputs on one input agree with the
+# port's to 0.33-0.80 bf16 ulp: 48 layers compound the float order),
+# recurrentgemma-9b 0.06056 (0.14453 over all; the reference moves by
+# 0.03898 between q_block 16 and its default). The decode-vs-forward bars
+# are about twice the port's CPU readings at 2 x 256 + 16 tokens (0.18945
+# and 0.08555). The pasted logits are bf16 products cast to fp32 (soft-
+# capped for recurrentgemma), so the argmax is held only where the
+# reference's top-2 gap exceeds the bar.
+P13_ARCHS = ("mamba2-780m", "recurrentgemma-9b")
+P13_SEED = 13
+P13_LAYERS = {"mamba2-780m": 48, "recurrentgemma-9b": 5}
+P13_PARAMS_M = {"mamba2-780m": 780.15, "recurrentgemma-9b": 2174.92}
+P13_FIXED_V = {"mamba2-780m": (0, 1, 4096, 32768, 50279),
+               "recurrentgemma-9b": (0, 1, 4096, 65536, 255999)}
+P13_TOL = {"mamba2-780m": 0.3, "recurrentgemma-9b": 0.15}
+P13_DECODE_TOL = {"mamba2-780m": 0.4, "recurrentgemma-9b": 0.25}
+# (c)'s long requests (batch, prompt, generated): four SSD chunks; past
+# the 2048-slot ring of recurrentgemma's local_attn layer
+P13_LONG = {"mamba2-780m": (2, 1024, 16), "recurrentgemma-9b": (2, 2040, 16)}
+P13_REF = {
+    "mamba2-780m": dict(
+        argmax=(
+            42660, 38790, 39036, 20603, 11672, 21003, 45162, 36962, 2007,
+            41402, 27454, 7468, 5534, 21452, 3360, 30864, 46055, 40298, 23045,
+            42859, 34367, 10037, 49784, 34717, 37568, 23406, 43567, 35410,
+            5613, 7666, 40391, 10081, 15490, 43028, 23418, 3591, 22833, 17412,
+            32197, 15094, 22262, 22319, 43389, 30027, 22845, 1525, 46896,
+            14927, 25436, 8235, 34230, 30055, 28600, 19948, 24371, 28713,
+            47931, 24860, 23882, 11509, 49865, 37379, 46394, 49677, 3283,
+            40993, 2512, 29499, 3624, 20749, 49696, 25352, 24237, 14126,
+            39316, 49582, 48541, 45397, 40588, 36524, 4184, 13150, 23640,
+            27292, 35922, 29390, 1516, 32918, 42627, 898, 24148, 5879, 34756,
+            8157, 6791, 36474, 29598, 35722, 29194, 46290, 22122, 41707,
+            49964, 2702, 11815, 3533, 14108, 5996, 13036, 38311, 2244, 32850,
+            31635, 4858, 16715, 31344, 31738, 34496, 15927, 21931, 26682,
+            5124, 50039, 44192, 21046, 48192, 32028, 15461),
+        gap=(
+            0.09375, 0.234375, 0.171875, 0.03125, 0.03125, 0.078125, 0.109375,
+            0.03125, 0.09375, 0.515625, 0.03125, 0.1875, 0.15625, 0.328125,
+            0.078125, 0.140625, 0.046875, 0.296875, 0.0625, 0.375, 0.046875,
+            0.140625, 0.21875, 0.015625, 0.328125, 0.03125, 0.015625,
+            0.578125, 0.5625, 0.0625, 0.0625, 0.015625, 0.15625, 0.265625,
+            0.015625, 0.421875, 0.40625, 0.046875, 0.234375, 0.015625,
+            0.234375, 0.15625, 0.109375, 0.25, 0.046875, 0.265625, 0.28125,
+            0.1875, 0.328125, 0, 0.15625, 0.3125, 0.328125, 0.28125, 0.203125,
+            0.140625, 0.203125, 0.0625, 0.046875, 0.34375, 0.453125, 0.296875,
+            0.0625, 0.015625, 0.25, 0.15625, 0.171875, 0.671875, 0, 0.125,
+            0.09375, 0.484375, 0.375, 0.109375, 0.09375, 0.03125, 0.03125,
+            0.109375, 0.046875, 0.546875, 0.015625, 0.09375, 0.03125, 0.21875,
+            0.046875, 0.0625, 0.03125, 0.03125, 0.015625, 0.03125, 0.203125,
+            0, 0.140625, 0.109375, 0.078125, 0.078125, 0.0625, 0.3125,
+            0.15625, 0.078125, 0.140625, 0.171875, 0.03125, 0, 0.09375,
+            0.078125, 0, 0.15625, 0.171875, 0.140625, 0.046875, 0.828125,
+            0.421875, 0.0625, 0, 0.015625, 0.25, 0.4375, 0.375, 0.171875,
+            0.4375, 0.046875, 0.15625, 0.046875, 0.5, 0.046875, 0.171875,
+            0.203125),
+        logits=(
+            3.21875, 3.34375, 3.453125, 3.265625, 3.1875, 3.125, 3.34375,
+            3.125, 3.09375, 3.59375, 3.484375, 3.203125, 3.109375, 3.265625,
+            3.484375, 3.1875, 3.390625, 3.390625, 3.046875, 3.453125,
+            3.078125, 3.21875, 3.53125, 3.125, 3.34375, 3.140625, 3.40625,
+            3.640625, 3.953125, 3.28125, 3.171875, 3.171875, 3.515625,
+            3.359375, 3.28125, 3.75, 3.984375, 3.375, 3.640625, 3.5, 3.296875,
+            3.5, 3.171875, 3.5625, 3.203125, 3.390625, 3.4375, 3.1875,
+            3.265625, 3.140625, 3.203125, 3.453125, 3.5625, 3.578125, 3.21875,
+            3.171875, 3.328125, 3.28125, 3.171875, 3.4375, 3.53125, 3.34375,
+            3.140625, 3.09375, 3.46875, 3.265625, 3.390625, 3.984375, 3.28125,
+            3.234375, 3.25, 3.53125, 3.796875, 3.125, 3.078125, 3.234375,
+            3.328125, 3.21875, 3.234375, 3.5625, 3.078125, 3.6875, 3.109375,
+            3.40625, 3.125, 3.078125, 3.171875, 3.375, 3.140625, 3.15625,
+            3.265625, 2.984375, 3.234375, 3.1875, 3.328125, 3.0625, 3.234375,
+            3.546875, 3.171875, 3.09375, 3.34375, 3.5625, 3.4375, 3.28125,
+            3.03125, 3.046875, 3.046875, 3.140625, 3.265625, 3.171875,
+            3.171875, 3.90625, 3.671875, 3.609375, 3.109375, 3.296875,
+            3.53125, 3.625, 3.5, 3.40625, 3.40625, 3.078125, 3.234375, 3, 3.5,
+            3.453125, 3.359375, 3.21875, 0.14355469, 1, 0.296875, -0.47070312,
+            -0.36914062, 0.18945312, -1.6328125, -0.23339844, 1.1484375,
+            -0.12109375, -0.21582031, 0.60546875, 0.31640625, 0.26953125,
+            -0.0062561035, -0.83984375, -1.5234375, 0.33203125, 0.78125,
+            0.15234375, 1.2734375, -0.7265625, -0.12597656, -0.088378906,
+            1.921875, 0.5859375, -1.40625, -0.90234375, -0.0010681152,
+            -0.09814453, -0.34960938, 1.1484375, 0.024902344, -0.6875,
+            0.76953125, 0.11621094, -0.296875, 0.26757812, -0.61328125,
+            -0.022094727)),
+    "recurrentgemma-9b": dict(
+        argmax=(
+            13315, 53612, 2544, 32360, 10065, 110947, 229788, 203301, 182496,
+            17636, 197598, 167945, 188300, 126223, 19714, 77182, 94883, 20450,
+            125267, 159122, 55166, 222034, 146878, 5249, 255892, 80734,
+            105556, 140224, 127746, 241275, 52147, 8637, 7626, 144441, 107508,
+            241061, 233634, 229424, 143929, 201645, 251119, 165415, 53392,
+            116414, 188136, 7926, 46759, 215017, 44131, 34295, 44688, 111028,
+            148618, 162340, 101186, 96928, 249974, 7191, 41085, 28813, 40980,
+            146821, 118909, 104569, 22380, 71370, 243952, 232596, 62799,
+            83636, 183925, 73163, 50256, 73223, 180202, 107639, 231770, 87385,
+            218107, 242757, 101009, 80911, 61884, 221955, 90485, 24338,
+            206188, 122237, 196173, 206658, 58787, 20198, 243098, 244878,
+            176367, 147875, 45613, 233507, 234218, 6847, 93940, 21090, 55587,
+            23018, 69922, 68792, 149940, 47586, 158842, 52647, 19792, 85868,
+            130807, 845, 138591, 216325, 202366, 199127, 209425, 254788,
+            50394, 210746, 225739, 514, 91512, 75101, 131943, 115183),
+        gap=(
+            0.030181885, 0.7503123, 0.7509303, 0.53899145, 0.24168873,
+            0.12093592, 0.2703476, 0.270895, 0.33135605, 0.24084377,
+            0.3896885, 0.54188824, 0.27023554, 0.42096472, 0, 0.8126421,
+            0.78144455, 0.24187183, 0.362669, 0.2400608, 1.3812656,
+            0.56929684, 0.030170918, 0, 0.24122429, 0.030217648, 0.18147182,
+            0.17989588, 0.24159765, 0.18167353, 0.09091997, 0.2106967,
+            0.03007555, 0.090512276, 0.77752113, 0.5716467, 0.030170918,
+            0.15097046, 0.21167755, 0, 0.06033039, 0.42147207, 0.33225822,
+            1.2031064, 0.9939909, 0, 0.2098341, 0.661232, 0.030228138,
+            0.18126726, 0.48148823, 0, 0.090581894, 0.48244143, 0.24141216,
+            0.09068537, 0.21127701, 0.14962769, 0.7545223, 0.30187988,
+            0.1507945, 0.779181, 0.66069174, 0.6558924, 0.06028223, 0.4507575,
+            0.24196243, 0.12032604, 0.7527528, 0, 0.03011179, 0.09114647,
+            0.57278156, 0.45184565, 0.09061766, 0.21035719, 0.03025055,
+            0.09040594, 0.6593175, 0.12017965, 0, 0.09047747, 0.090441704,
+            0.09047747, 0.39191008, 0.9500804, 0.21167755, 0.15097046,
+            0.24015999, 0.6313062, 1.2520337, 0.060602188, 0.06046772,
+            0.09061766, 0.27143002, 0.18098879, 0.8692584, 0.060602188,
+            0.060352802, 0.1507945, 0.5093727, 0.2106967, 0.98224354,
+            0.060602188, 0.45290184, 0.12107134, 0.6646223, 0.48244143, 0,
+            0.09075308, 0.03011179, 0.030135155, 0.60443544, 0.8113303,
+            0.30164766, 0.30117416, 0.8103318, 0.30187988, 0.54101515,
+            0.060513496, 0.15097046, 0.48148823, 0.18153906, 0.03025055,
+            0.12051773, 0.602334, 0.030194283, 0.18098879),
+        logits=(
+            5.5599957, 6.340479, 6.280744, 6.4001613, 5.5901666, 5.4694138,
+            6.0412908, 5.891221, 5.86117, 5.86117, 6.2508583, 6.011302,
+            6.071266, 6.0412908, 5.710732, 6.16112, 6.2508583, 5.529814,
+            5.620326, 6.1012306, 6.6086273, 6.3703275, 5.5901666, 5.5901666,
+            5.740844, 5.4694138, 5.4694138, 6.1311817, 5.620326, 5.3787284,
+            5.257657, 5.86117, 5.831106, 5.620326, 6.6086273, 6.071266,
+            5.5901666, 5.5901666, 5.4996195, 5.408968, 5.620326, 5.951286,
+            5.650473, 6.4001613, 6.1910458, 5.287942, 6.16112, 6.1910458,
+            5.439196, 5.5599957, 6.011302, 5.9212594, 5.5599957, 5.86117,
+            5.6806083, 5.4694138, 5.650473, 6.2508583, 5.9212594, 5.6806083,
+            5.6806083, 6.4597893, 6.2508583, 6.757123, 5.6806083, 6.1012306,
+            5.4996195, 5.86117, 6.1012306, 5.710732, 5.740844, 5.0453587,
+            5.9212594, 5.9212594, 5.529814, 5.9813004, 5.3787284, 5.710732,
+            6.4001613, 5.951286, 5.4694138, 5.650473, 5.6806083, 5.650473,
+            5.831106, 7.171039, 5.4996195, 5.5901666, 6.071266, 6.16112,
+            7.0530643, 5.257657, 5.439196, 5.529814, 5.740844, 5.6806083,
+            6.4895844, 5.257657, 5.5901666, 5.6806083, 6.340479, 5.86117,
+            7.0235343, 5.257657, 5.740844, 5.3787284, 5.8010306, 5.86117,
+            5.620326, 5.408968, 5.740844, 5.6806083, 5.740844, 6.280744,
+            5.740844, 5.86117, 6.3703275, 5.6806083, 6.1311817, 5.3787284,
+            5.5901666, 6.011302, 5.439196, 5.3787284, 5.740844, 6.011302,
+            5.529814, 5.6806083, -0.9996298, 0.05712883, -0.86694604,
+            3.2836664, -1.9114693, 0.60538656, -0.37107483, 0.16015473,
+            1.0464504, -0.53509945, -0.05297846, -0.41208342, -0.70299625,
+            1.6389916, -0.9996298, 0.24022925, 0.87865484, 1.2960678,
+            -0.30077115, -1.0152371, 1.5766709, -0.45894855, 0.41403624,
+            -0.30858287, 0.1621078, 1.8414321, -2.1059053, -0.6366231,
+            0.6483365, 0.83962446, 1.1322744, 0.49800104, -0.32030034,
+            1.0152371, 1.21808, -0.82401145, -0.20898099, -1.1868801,
+            -0.16406086, 0.42770535)),
+}
+
+
+def state_bytes(cache):
+    """(recurrent-state bytes, KV-cache bytes) of a decode cache: the SSM
+    layers' (conv, ssm) state tuples and the attention layers' K and V."""
+    rec = sum(t.numel() * t.element_size() for c in cache
+              if isinstance(c, tuple) for t in c)
+    kv = sum(c[k].numel() * c[k].element_size() for c in cache
+             if isinstance(c, dict) for k in ("k", "v"))
+    return rec, kv
+
+
+def phase13(torch, np):
+    """The recurrent block kinds at full width (slice 9)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {}
+    totals = dict(nn_search=0, candidate_sweep=0, fused_moment_sweep=0,
+                  moment_sweep=0)
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    for arch in P13_ARCHS:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=P13_LAYERS[arch])
+        tag = f"phase13 {arch}"
+        row = out[arch] = dict(layers=cfg.n_layers, full_layers=full.n_layers)
+
+        # (a) weights
+        t0 = time.perf_counter()
+        tree = lm.init_params_numpy(cfg, 0)
+        init_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = lm.params_from_reference(tree, cfg, dev)
+        n_params, w_bytes = lm.param_count(model), lm.param_bytes(model)
+        check(round(n_params / 1e6, 2) == P13_PARAMS_M[arch], f"{tag} a: "
+              f"{n_params} parameters, expected {P13_PARAMS_M[arch]} M")
+        row["a"] = dict(params=n_params, weight_bytes=w_bytes, init_s=init_s,
+                        load_peak_bytes=torch.cuda.max_memory_allocated(dev))
+        log(f"{tag} a: {cfg.n_layers} of {full.n_layers} layers "
+            f"{cfg.layer_kinds[:3]}..., full width, {n_params / 1e6:.2f} M "
+            f"parameters, {w_bytes / 1e9:.4f} GB on the card (bf16 kernels "
+            f"and table; fp32 norms, SSM vectors and RG-LRU gates); numpy "
+            f"init {init_s:.1f} s; max_memory_allocated "
+            f"{row['a']['load_peak_bytes'] / 1e9:.4f} GB")
+
+        # (b) teacher-forced logits against the JAX reference, card and CPU
+        ref = dict(P13_REF[arch], tag=f"{tag} b", tol=P13_TOL[arch],
+                   fixed_v=P13_FIXED_V[arch])
+        tok = torch.from_numpy(np.random.default_rng(P13_SEED).integers(
+            0, cfg.vocab_size, (P12_B, P12_S), dtype=np.int32))
+        logits_card, _ = lm.forward(model, cfg, tokens=tok.to(dev))
+        row["b_cuda"] = hold_logits(np, "cuda", logits_card, ref)
+        cpu_model = lm.params_from_reference(tree, cfg, "cpu")
+        del tree
+        t0 = time.perf_counter()
+        logits_cpu, _ = lm.forward(cpu_model, cfg, tokens=tok)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        del cpu_model
+        row["b_cpu"] = hold_logits(np, "cpu", logits_cpu, ref)
+        card_vs_cpu = float((logits_card.cpu() - logits_cpu).abs().max())
+        row["b_cpu"].update(forward_ms=cpu_ms, card_vs_cpu=card_vs_cpu)
+        log(f"{tag} b: card vs the port's CPU path, max |logit diff| over "
+            f"all {logits_cpu.numel()} logits {card_vs_cpu:.6f}; the CPU "
+            f"forward took {cpu_ms:.0f} ms (host clock)")
+        del logits_card, logits_cpu
+
+        # (c) serving: the launcher's defaults, then the long requests
+        b_long, s_long, g_long = P13_LONG[arch]
+        runs = (("b4_p32_g32", serve_launch.prompt_tokens(
+            1, 4, 32, cfg.vocab_size), 32),
+                (f"b{b_long}_p{s_long}_g{g_long}",
+                 np.random.default_rng(P13_SEED + 1).integers(
+                     0, cfg.vocab_size, (b_long, s_long), dtype=np.int32),
+                 g_long))
+        row["c"], served = {}, {}
+        for name, prompts, gen in runs:
+            prompts = torch.from_numpy(prompts).to(dev)
+            b, s = prompts.shape
+            engine = Engine(cfg, model, max_len=s + gen, device=dev)
+            (toks, steps), wall, launches = counted(
+                torch, lambda: serve_logits(torch, lm, engine, prompts, gen))
+            add(launches)
+            again = Engine(cfg, model, max_len=s + gen, device=dev).generate(
+                prompts, gen)
+            check(bool(torch.equal(toks, again)), f"{tag} c {name}: two "
+                  f"engines gave different tokens")
+            served[name] = toks
+            c = teacher_forced(torch, lm, model, cfg, name, prompts, toks,
+                               steps, tol=P13_DECODE_TOL[arch],
+                               tag=f"{tag} c")
+            prefill_ms, step_ms, issue_ms, cache = decode_timing(
+                torch, lm, model, cfg, prompts, gen - 1)
+            # positions 0 .. s + gen - 2 written; past the window the ring
+            # holds the last ``window`` of them
+            rings = [cache[li]["pos"] for li, kind in
+                     enumerate(cfg.layer_kinds) if kind == "local_attn"]
+            wrapped = bool(rings) and s + gen - 1 > cfg.window
+            for ring in rings:
+                oldest = s + gen - 1 - ring.numel() if wrapped else -1
+                check(int(ring.max()) == s + gen - 2
+                      and int(ring.min()) == oldest, f"{tag} c {name}: ring "
+                      f"positions {int(ring.min())}..{int(ring.max())}")
+            pos = s + gen - 1
+            nxt = toks[:, -1]
+            kernels, busy, host_launches = device_profile(
+                torch, lambda: lm.decode_step(model, cfg, pos, cache,
+                                              token=nxt))
+            rec_bytes, kv_bytes = state_bytes(cache)
+            # weights read once, recurrent states read and written, the KV
+            # ring read, the fp32 logits written
+            step_bytes = (w_bytes + 2 * rec_bytes + kv_bytes
+                          + b * cfg.vocab_size * 4)
+            bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+            idle = None if busy is None else 1 - busy / step_ms
+            c.update(batch=b, prompt=s, gen=gen, wall_ms=wall,
+                     tokens_per_s=b * gen / wall * 1e3, prefill_ms=prefill_ms,
+                     decode_ms_per_token=step_ms, decode_issue_ms=issue_ms,
+                     decode_tokens_per_s=b / step_ms * 1e3,
+                     ring_wrapped=wrapped, step_kernels=kernels,
+                     step_busy_ms=busy, step_host_launches=host_launches,
+                     step_idle=idle, step_bytes=step_bytes,
+                     state_bytes=rec_bytes, kv_bytes=kv_bytes,
+                     step_bound_ms=bound_ms)
+            row["c"][name] = c
+            profiled = ("no device activity recorded" if busy is None else
+                        f"{busy:.4f} ms busy, idle {idle:.1%}")
+            ring = (f" (the {cfg.window}-slot ring wrapped)" if wrapped
+                    else "")
+            log(f"{tag} c {name}: B={b} prompt {s}{ring} gen {gen} | "
+                f"generate {wall:.1f} ms wall, {c['tokens_per_s']:.1f} tok/s "
+                f"| prefill {prefill_ms:.3f} ms | decode {step_ms:.3f} ms a "
+                f"step ({c['decode_tokens_per_s']:.1f} tok/s; the host queues "
+                f"a step in {issue_ms:.3f} ms) | one step: {kernels} device "
+                f"kernels ({host_launches} host launches), {profiled} | byte "
+                f"bound {bound_ms:.4f} ms ({step_bytes / 1e9:.4f} GB: weights "
+                f"{w_bytes / 1e9:.4f} GB, recurrent states "
+                f"{rec_bytes / 1e6:.2f} MB read and written, KV "
+                f"{kv_bytes / 1e6:.2f} MB), {bound_ms / step_ms:.1%} of the "
+                f"step")
+            del cache, steps, engine
+        row["c_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        log(f"{tag} c: max_memory_allocated over (a)-(c) "
+            f"{row['c_peak_bytes'] / 1e9:.4f} GB")
+        del model
+        torch.cuda.empty_cache()
+
+        # the launcher at its defaults: the full config, all its layers
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            launched, wall, launches = counted(
+                torch, lambda: serve_launch.main(["--arch", arch, "--device",
+                                                  "cuda:0"]))
+        add(launches)
+        lines = [ln for ln in text.getvalue().splitlines() if "tok/s" in ln]
+        check(len(lines) == 1, f"{tag} launcher: no tok/s line in "
+              f"{text.getvalue()!r}")
+        check(tuple(launched.shape) == (4, 32) and int(launched.min()) >= 0
+              and int(launched.max()) < cfg.vocab_size, f"{tag} launcher: "
+              f"bad tokens {tuple(launched.shape)}")
+        if full.n_layers == cfg.n_layers:
+            check(bool(torch.equal(launched, served["b4_p32_g32"])),
+                  f"{tag} launcher: its tokens differ from the engine's on "
+                  f"the same weights and prompts")
+        row["launcher"] = dict(line=lines[0], wall_ms=wall,
+                               layers=full.n_layers)
+        log(f"{tag} launcher (repro_torch.launch.serve --arch {arch}, "
+            f"{full.n_layers} layers): {lines[0].strip()} | {wall:.0f} ms "
+            f"with its weight init")
+        del launched
+        torch.cuda.empty_cache()
+        log(f"{tag}: {time.perf_counter() - t_arch:.1f} s")
+    out["launch_totals"] = totals
+    check(sum(totals.values()) == 0, f"phase13: the recurrent LM path "
+          f"launched port kernels {totals}")
+    log(f"phase13: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def compare_minimizers(report):
     """Log each point-to-plane run of phase 7 beside the point-to-point run
     of the same path (phases 2, 3 and 5): iterations and wall ms per
@@ -3418,8 +3836,9 @@ def main(argv=None):
     report["phase10"] = phase10(torch, np, scenes, fleet)
     report["phase11"] = phase11(torch, np, scenes, logs["fused_icp"])
     report["phase12"] = phase12(torch, np)
+    report["phase13"] = phase13(torch, np)
     totals = {k: v + sum(report[f"phase{p}"]["launch_totals"][k]
-                         for p in (7, 8, 9, 10, 11, 12))
+                         for p in (7, 8, 9, 10, 11, 12, 13))
               for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(

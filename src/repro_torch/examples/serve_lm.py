@@ -1,7 +1,7 @@
 """Serve a small model with batched requests (prefill + decode engine; port
-of ``examples/serve_lm.py``).
+of ``examples/serve_lm.py``, which serves qwen2-0.5b).
 
-    python -m repro_torch.examples.serve_lm [--device cuda|cpu]
+    python -m repro_torch.examples.serve_lm [--arch ARCH] [--device cuda|cpu]
 """
 from __future__ import annotations
 
@@ -9,17 +9,19 @@ import argparse
 
 import torch
 
+from repro_torch.configs import list_archs
 from repro_torch.launch import serve as serve_driver
 
 
 def main(argv=None) -> torch.Tensor:
-    """The qwen2-0.5b smoke config, 4 prompts of 32 tokens, 32 generated;
-    returns the (4, 32) generated tokens."""
+    """The arch's smoke config (default qwen2-0.5b), 4 prompts of 32
+    tokens, 32 generated; returns the (4, 32) generated tokens."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=list_archs(), default="qwen2-0.5b")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
-    out = serve_driver.main(["--arch", "qwen2-0.5b", "--smoke", "--batch",
+    out = serve_driver.main(["--arch", args.arch, "--smoke", "--batch",
                              "4", "--prompt-len", "32", "--gen", "32",
                              "--device", args.device])
     print("OK")

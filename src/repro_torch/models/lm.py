@@ -11,22 +11,29 @@ unstacks the groups in the reference's layer order, and ``_layer_plan``
 
 Weights: ``init_params_numpy(cfg, seed)`` builds the reference's tree
 with numpy (normal(0.02) kernels and tables, zero biases, unit norm
-scales), since JAX's PRNG cannot be reproduced here; the JAX package takes
-the same arrays as its ``params``. ``params_from_reference`` turns such a
-tree into the port's model, a :class:`DecoderLM`, casting matmul kernels,
-biases and tables to bf16 once (the reference casts them at every use, to
-the same bits) and keeping norm scales fp32.
+scales, and the SSM blocks' own initialisers: normal(0.1) conv weights,
+``A_log = log(1..n_heads)``, unit ``D``, Griffin's ``lambda``), since
+JAX's PRNG cannot be reproduced here; the JAX package takes the same
+arrays as its ``params``. ``params_from_reference`` turns such a tree into
+the port's model, a :class:`DecoderLM`, casting matmul kernels, biases and
+tables to bf16 once (the reference casts them at every use, to the same
+bits) and keeping norm scales, the SSM vectors and the RG-LRU gates
+``w_a`` / ``w_i`` (fp32 matmuls in the reference) fp32.
 
 Block kinds: ``attn`` and ``local_attn`` with the swiglu / geglu / gelu
-FFN. ``mla``, ``ssd``, ``rglru`` and the MoE FFN raise
-``NotImplementedError`` naming ROADMAP queue 1 item 8.2. There are no
-sharding constraints (the reference's ``aconstraint`` is a no-op on one
-device; the partition rules are item 8.4); ``loss_fn`` and remat wait for
-the training item 8.3.
+FFN, ``ssd`` (Mamba-2, no FFN) and ``rglru`` (Griffin's recurrent block),
+from ``models.ssm``. A layer's decode state is the KV cache dict of an
+attention layer or the (conv state, recurrent state) tuple of an SSM
+layer. ``mla`` and the MoE FFN raise ``NotImplementedError`` naming
+ROADMAP queue 1 item 8.2. There are no sharding constraints (the
+reference's ``aconstraint`` is a no-op on one device; the partition rules
+are item 8.4); ``loss_fn`` and remat wait for the training item 8.3.
 """
 from __future__ import annotations
 
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,13 +43,17 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 
-PORTED_KINDS = ("attn", "local_attn")
+PORTED_KINDS = ("attn", "local_attn", "ssd", "rglru")
 PORTED_FFNS = ("swiglu", "geglu", "gelu")
 _ITEM = "ROADMAP queue 1 item 8.2"
 # Leaves cast to bf16 at load (the reference casts them at every use).
 _BF16_LEAVES = ("kernel", "bias", "table")
+# ... except under these: the RG-LRU gates, fp32 matmuls in the reference
+_FP32_DENSE = ("w_a", "w_i")
 INIT_STDDEV = 0.02  # the reference's default_kernel_init
+CONV_STDDEV = 0.1   # the SSM blocks' conv_w init (models/ssm.py)
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +67,18 @@ def attn_config(cfg: ArchConfig, kind: str) -> attn.AttnConfig:
         window=cfg.window if kind == "local_attn" else 0,
         q_block=cfg.q_block,
         rms_eps=cfg.rms_eps, kv_quant=cfg.kv_quant)
+
+
+def ssm_config(cfg: ArchConfig) -> ssm_lib.SSMConfig:
+    return ssm_lib.SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                             expand=cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                             chunk=cfg.ssm_chunk, conv_width=cfg.conv_width)
+
+
+def rglru_config(cfg: ArchConfig) -> ssm_lib.RGLRUConfig:
+    return ssm_lib.RGLRUConfig(d_model=cfg.d_model,
+                               lru_width=cfg.lru_width or cfg.d_model,
+                               conv_width=cfg.conv_width)
 
 
 def _ffn_kind(cfg: ArchConfig, layer_idx: int, mixer_kind: str) -> str:
@@ -100,9 +123,11 @@ def check_supported(cfg: ArchConfig) -> None:
 # weights
 # ---------------------------------------------------------------------------
 def _layer_shapes(cfg: ArchConfig, kind: str, ffn_kind: str) -> dict:
-    """The reference's parameter layout of one layer: nested dict of
-    (shape, init) leaves, init one of "normal", "zeros", "ones"."""
-    a = attn_config(cfg, kind)
+    """The reference's parameter layout of one layer (its ``_layer_init``,
+    with ``mamba2_init`` and ``rglru_block_init`` for the SSM kinds): a
+    nested dict of (shape, init) leaves, init one of "normal"
+    (``INIT_STDDEV``), "conv" (``CONV_STDDEV``), "zeros", "ones", "a_log"
+    (log(1..n_heads)) or "lambda" (Griffin's Λ)."""
     d = cfg.d_model
 
     def dense(d_in, d_out, bias=False):
@@ -111,76 +136,129 @@ def _layer_shapes(cfg: ArchConfig, kind: str, ffn_kind: str) -> dict:
             p["bias"] = ((d_out,), "zeros")
         return p
 
-    mixer = {"wq": dense(d, a.n_heads * a.d_head, a.qkv_bias),
-             "wk": dense(d, a.n_kv_heads * a.d_head, a.qkv_bias),
-             "wv": dense(d, a.n_kv_heads * a.d_head, a.qkv_bias),
-             "wo": dense(a.n_heads * a.d_head, d)}
-    if a.qk_norm:
-        mixer["q_norm"] = ((a.d_head,), "ones")
-        mixer["k_norm"] = ((a.d_head,), "ones")
+    if kind == "ssd":
+        s = ssm_config(cfg)
+        conv_dim = s.d_inner + 2 * s.d_state
+        # fused input projection: [z | x | B | C | dt]
+        mixer = {"in_proj": dense(d, 2 * s.d_inner + 2 * s.d_state
+                                  + s.n_heads),
+                 "conv_w": ((s.conv_width, conv_dim), "conv"),
+                 "conv_b": ((conv_dim,), "zeros"),
+                 "A_log": ((s.n_heads,), "a_log"),
+                 "D": ((s.n_heads,), "ones"),
+                 "dt_bias": ((s.n_heads,), "zeros"),
+                 "norm": {"scale": ((s.d_inner,), "ones")},
+                 "out_proj": dense(s.d_inner, d)}
+    elif kind == "rglru":
+        r = rglru_config(cfg)
+        w = r.lru_width
+        mixer = {"w_gate": dense(d, w), "w_rec_in": dense(d, w),
+                 "conv_w": ((r.conv_width, w), "conv"),
+                 "conv_b": ((w,), "zeros"),
+                 "w_a": dense(w, w, bias=True), "w_i": dense(w, w, bias=True),
+                 "lambda": ((w,), "lambda"),
+                 "w_out": dense(w, d)}
+    else:
+        a = attn_config(cfg, kind)
+        mixer = {"wq": dense(d, a.n_heads * a.d_head, a.qkv_bias),
+                 "wk": dense(d, a.n_kv_heads * a.d_head, a.qkv_bias),
+                 "wv": dense(d, a.n_kv_heads * a.d_head, a.qkv_bias),
+                 "wo": dense(a.n_heads * a.d_head, d)}
+        if a.qk_norm:
+            mixer["q_norm"] = ((a.d_head,), "ones")
+            mixer["k_norm"] = ((a.d_head,), "ones")
+    layer = {"mixer_norm": {"scale": ((d,), "ones")}, "mixer": mixer}
+    if ffn_kind == "none":
+        return layer
     if ffn_kind == "gelu":
         ffn = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d)}
     else:  # swiglu | geglu share the layout
         ffn = {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
                "wo": dense(cfg.d_ff, d)}
-    return {"mixer_norm": {"scale": ((d,), "ones")}, "mixer": mixer,
-            "ffn_norm": {"scale": ((d,), "ones")}, "ffn": ffn}
+    return {**layer, "ffn_norm": {"scale": ((d,), "ones")}, "ffn": ffn}
 
 
-def _fill(shapes: dict, seed: int, path: str, lead: tuple = ()) -> dict:
-    """numpy arrays for a shape tree; each normal leaf is drawn from its own
-    generator, seeded by (seed, crc32 of its path)."""
+def _draw(path: str, shape: tuple, init: str, seed: int) -> np.ndarray:
+    """One leaf; a random one from its own generator, seeded by (seed,
+    crc32 of its path)."""
+    if init in ("normal", "conv", "lambda"):
+        rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
+        if init == "lambda":  # a = exp(-c softplus(Λ)) in (0.9, 0.999)
+            u = rng.uniform(0.9 ** 2, 0.999 ** 2, shape).astype(np.float32)
+            return np.log(np.expm1(-np.log(u)
+                                   / np.float32(2 * ssm_lib.RGLRU_C)))
+        arr = rng.standard_normal(shape, dtype=np.float32)
+        arr *= np.float32(INIT_STDDEV if init == "normal" else CONV_STDDEV)
+        return arr
+    if init == "a_log":
+        return np.broadcast_to(np.log(np.arange(1, shape[-1] + 1,
+                                                dtype=np.float32)),
+                               shape).copy()
+    return (np.zeros if init == "zeros" else np.ones)(shape, np.float32)
+
+
+def _fill(shapes: dict, seed: int, path: str, pool) -> dict:
+    """A shape tree as a tree of futures of its numpy leaves, drawn on
+    ``pool`` (each leaf has its own generator, so the threads give the
+    same arrays in any order)."""
     out = {}
     for name, spec in shapes.items():
         here = f"{path}/{name}" if path else name
         if isinstance(spec, dict):
-            out[name] = _fill(spec, seed, here, lead)
-            continue
-        shape, init = spec
-        shape = lead + shape
-        if init == "normal":
-            rng = np.random.default_rng([seed, zlib.crc32(here.encode())])
-            arr = rng.standard_normal(shape, dtype=np.float32)
-            arr *= np.float32(INIT_STDDEV)
+            out[name] = _fill(spec, seed, here, pool)
         else:
-            arr = (np.zeros if init == "zeros" else np.ones)(shape,
-                                                             np.float32)
-        out[name] = arr
+            out[name] = pool.submit(_draw, here, *spec, seed)
     return out
+
+
+def _results(tree: dict) -> dict:
+    return {name: _results(v) if isinstance(v, dict) else v.result()
+            for name, v in tree.items()}
+
+
+def _stacked(shapes: dict, reps: int) -> dict:
+    return {name: (_stacked(v, reps) if isinstance(v, dict) else
+                   ((reps,) + v[0], v[1]))
+            for name, v in shapes.items()}
+
+
+def param_shapes(cfg: ArchConfig) -> dict:
+    """The reference's parameter tree for ``cfg`` as (shape, init) leaves
+    (see ``_layer_shapes``), ``groups`` leaves stacked over repeats: the
+    layout of ``init_params_numpy``, without drawing a weight."""
+    check_supported(cfg)
+    prefix, reps, suffix, kinds = _layer_plan(cfg)
+    period = len(cfg.block_pattern)
+    d, v = cfg.d_model, cfg.vocab_size
+    tree: dict = {}
+    if cfg.embed_inputs:
+        tree["embed"] = {"table": ((v, d), "normal")}
+    tree["final_norm"] = {"scale": ((d,), "ones")}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"kernel": ((d, v), "normal")}
+
+    def layer(li):
+        return _layer_shapes(cfg, kinds[li], _ffn_kind(cfg, li, kinds[li]))
+
+    if prefix:
+        tree["prefix"] = {str(i): layer(li) for i, li in enumerate(prefix)}
+    if reps:
+        base = len(prefix)
+        tree["groups"] = {str(j): _stacked(layer(base + j), reps)
+                          for j in range(period)}
+    if suffix:
+        tree["suffix"] = {str(i): layer(li) for i, li in enumerate(suffix)}
+    return tree
 
 
 def init_params_numpy(cfg: ArchConfig, seed: int = 0) -> dict:
     """The reference's parameter tree for ``cfg`` as fp32 numpy arrays
     (``groups`` leaves stacked over repeats), made from ``seed``: what the
     JAX package's ``lm.init_params`` returns, with numpy's draws in place of
-    JAX's PRNG."""
-    check_supported(cfg)
-    prefix, reps, suffix, kinds = _layer_plan(cfg)
-    period = len(cfg.block_pattern)
-    d, v = cfg.d_model, cfg.vocab_size
-    top: dict = {}
-    if cfg.embed_inputs:
-        top["embed"] = {"table": ((v, d), "normal")}
-    top["final_norm"] = {"scale": ((d,), "ones")}
-    if not cfg.tie_embeddings:
-        top["lm_head"] = {"kernel": ((d, v), "normal")}
-    tree = _fill(top, seed, "")
-
-    def layer(li):
-        return _layer_shapes(cfg, kinds[li], _ffn_kind(cfg, li, kinds[li]))
-
-    if prefix:
-        tree["prefix"] = {str(i): _fill(layer(li), seed, f"prefix/{i}")
-                          for i, li in enumerate(prefix)}
-    if reps:
-        base = len(prefix)
-        tree["groups"] = {str(j): _fill(layer(base + j), seed, f"groups/{j}",
-                                        (reps,))
-                          for j in range(period)}
-    if suffix:
-        tree["suffix"] = {str(i): _fill(layer(li), seed, f"suffix/{i}")
-                          for i, li in enumerate(suffix)}
-    return tree
+    JAX's PRNG. The leaves are drawn on up to 8 threads."""
+    shapes = param_shapes(cfg)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return _results(_fill(shapes, seed, "", pool))
 
 
 class ParamTree(nn.Module):
@@ -219,19 +297,21 @@ class DecoderLM(ParamTree):
                        positions=positions)
 
 
-def _leaf_tensor(name: str, arr, device) -> torch.Tensor:
+def _leaf_tensor(arr, device, bf16: bool) -> torch.Tensor:
     t = torch.tensor(np.asarray(arr), dtype=torch.float32)
-    if name in _BF16_LEAVES:
+    if bf16:
         t = t.to(torch.bfloat16)
     return t.to(device)
 
 
-def _convert(tree: dict, device, index=None) -> dict:
+def _convert(tree: dict, device, index=None, fp32: bool = False) -> dict:
     """numpy subtree -> tensors on ``device``; ``index`` takes one repeat
-    of stacked group leaves."""
-    return {name: (_convert(v, device, index) if isinstance(v, dict) else
-                   _leaf_tensor(name, v if index is None else v[index],
-                                device))
+    of stacked group leaves; ``fp32`` keeps the subtree's matmul leaves
+    fp32 (under ``_FP32_DENSE``)."""
+    return {name: (_convert(v, device, index, fp32 or name in _FP32_DENSE)
+                   if isinstance(v, dict) else
+                   _leaf_tensor(v if index is None else v[index], device,
+                                name in _BF16_LEAVES and not fp32))
             for name, v in tree.items()}
 
 
@@ -283,6 +363,8 @@ def _layer_kinds(cfg: ArchConfig, li: int):
 
 
 def _ffn_apply(p, x, cfg: ArchConfig, ffn_kind: str):
+    if ffn_kind == "none":
+        return x
     h = L.rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
     if ffn_kind == "gelu":
         h = L.gelu_mlp(p["ffn"], h)
@@ -296,23 +378,56 @@ def _ffn_apply(p, x, cfg: ArchConfig, ffn_kind: str):
 def _layer_forward(p, x, positions, cfg: ArchConfig, kind: str,
                    ffn_kind: str):
     h = L.rmsnorm(p["mixer_norm"], x, cfg.rms_eps)
-    h = attn.gqa_forward(p["mixer"], h, positions, attn_config(cfg, kind))
+    if kind == "ssd":
+        h = ssm_lib.mamba2_forward(p["mixer"], h, ssm_config(cfg))
+    elif kind == "rglru":
+        h = ssm_lib.rglru_block_forward(p["mixer"], h, rglru_config(cfg))
+    else:
+        h = attn.gqa_forward(p["mixer"], h, positions, attn_config(cfg, kind))
     return _ffn_apply(p, x + h, cfg, ffn_kind)
+
+
+def _layer_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                      dtype, device):
+    if kind == "ssd":
+        return ssm_lib.mamba2_init_state(batch, ssm_config(cfg),
+                                         device=device)
+    if kind == "rglru":
+        return ssm_lib.rglru_init_state(batch, rglru_config(cfg),
+                                        device=device)
+    return attn.gqa_init_cache(batch, max_len, attn_config(cfg, kind), dtype,
+                               device)
 
 
 def _layer_prefill(p, x, positions, cfg: ArchConfig, kind: str,
                    ffn_kind: str, max_len: int):
     h = L.rmsnorm(p["mixer_norm"], x, cfg.rms_eps)
-    h, cache = attn.gqa_prefill_cache(p["mixer"], h, positions,
-                                      attn_config(cfg, kind), max_len)
+    if kind == "ssd":
+        h, cache = ssm_lib.mamba2_forward(p["mixer"], h, ssm_config(cfg),
+                                          return_state=True)
+    elif kind == "rglru":
+        h, cache = ssm_lib.rglru_block_forward(p["mixer"], h,
+                                               rglru_config(cfg),
+                                               return_state=True)
+    else:
+        h, cache = attn.gqa_prefill_cache(p["mixer"], h, positions,
+                                          attn_config(cfg, kind), max_len)
     return _ffn_apply(p, x + h, cfg, ffn_kind), cache
 
 
 def _layer_decode(p, x, pos: int, positions, cache, cfg: ArchConfig,
                   kind: str, ffn_kind: str):
     h = L.rmsnorm(p["mixer_norm"], x, cfg.rms_eps)
-    h, cache = attn.gqa_decode_step(p["mixer"], h, pos, cache,
-                                    attn_config(cfg, kind), positions)
+    if kind == "ssd":
+        h, cache = ssm_lib.mamba2_decode_step(p["mixer"], h, cache,
+                                              ssm_config(cfg))
+    elif kind == "rglru":  # the reference's block over one token
+        h, cache = ssm_lib.rglru_block_forward(p["mixer"], h,
+                                               rglru_config(cfg), state=cache,
+                                               return_state=True)
+    else:
+        h, cache = attn.gqa_decode_step(p["mixer"], h, pos, cache,
+                                        attn_config(cfg, kind), positions)
     return _ffn_apply(p, x + h, cfg, ffn_kind), cache
 
 
@@ -345,7 +460,7 @@ def _head(params, cfg: ArchConfig, x):
 def forward(params, cfg: ArchConfig, tokens=None, embeds=None,
             positions=None):
     """-> (logits (B,S,V) fp32, aux scalar). aux is the MoE auxiliary loss
-    in the reference; 0 for the dense kinds ported here."""
+    in the reference; 0 for the kinds ported here."""
     check_supported(cfg)
     x = _embed_in(params, cfg, tokens, embeds)
     if positions is None:
@@ -362,20 +477,21 @@ def forward(params, cfg: ArchConfig, tokens=None, embeds=None,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> list:
-    """One empty KV cache a layer, in layer order."""
+    """One empty decode state a layer, in layer order: a KV cache (in
+    ``dtype``) for an attention layer, fp32 zero states for an SSM layer
+    (``mamba2_init_state`` / ``rglru_init_state``)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [attn.gqa_init_cache(batch, max_len,
-                                attn_config(cfg, cfg.layer_kinds[li]), dtype,
-                                dev)
+    return [_layer_cache_init(cfg, cfg.layer_kinds[li], batch, max_len,
+                              dtype, dev)
             for li in range(cfg.n_layers)]
 
 
 @torch.inference_mode()
 def prefill(params, cfg: ArchConfig, tokens=None, embeds=None,
             max_len: int | None = None):
-    """Run the prompt; -> (last-position logits (B,V), caches at len S, one
-    a layer)."""
+    """Run the prompt; -> (last-position logits (B,V), decode states at len
+    S, one a layer)."""
     check_supported(cfg)
     x = _embed_in(params, cfg, tokens, embeds)
     s = x.shape[1]
@@ -394,7 +510,8 @@ def decode_step(params, cfg: ArchConfig, pos: int, cache: list, token=None,
                 embed=None):
     """One token for the whole batch at absolute position ``pos``.
 
-    token: (B,) int or embed: (B, D). Writes each layer's cache in place;
+    token: (B,) int or embed: (B, D). Writes each attention layer's KV
+    cache in place and replaces each SSM layer's state tuple in ``cache``;
     -> (logits (B,V), cache)."""
     if cfg.embed_inputs:
         x = L.embed(params["embed"], token[:, None])

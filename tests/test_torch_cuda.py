@@ -783,3 +783,78 @@ def test_vq_encode_3d_on_card_gives_plain_bits(cuda_device):
         ref.augment_target(book, pad_to=round_up(len(book), TILE_M)))
     assert torch.equal(codes, idx[:len(flat)].reshape(2, 5000))
     assert torch.equal(quant, book[codes.long()])
+
+
+# -- slice 9: the recurrent block kinds --------------------------------------
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-9b"])
+def test_recurrent_smoke_lm_on_card_matches_cpu(cuda_device, arch):
+    """The arch's smoke config on the card against the same weights on the
+    CPU: forward, prefill and four decode steps (past mamba2's 16-token
+    chunk and recurrentgemma's 16-slot ring) with logits within three bf16
+    ulps of the CPU's largest (the bar the CPU tests hold the port to the
+    reference with), the argmax equal where the CPU's top-2 gap exceeds
+    it, every decode state in the CPU's layout and dtypes; the card's
+    greedy tokens are its own forward's teacher-forced argmax except on
+    near-ties within that bar."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+    cfg = get_smoke(arch)
+    tree = lm.init_params_numpy(cfg, seed=0)
+    card = lm.params_from_reference(tree, cfg, cuda_device)
+    cpu = lm.params_from_reference(tree, cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 44), dtype=np.int32))
+
+    def hold(got, want):
+        got = got.cpu()
+        tol = 3 * 2.0 ** -7 * want.abs().max().item()
+        assert (got - want).abs().max().item() <= tol
+        top2 = want.topk(2, dim=-1).values
+        decided = top2[..., 0] - top2[..., 1] > tol
+        assert torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided])
+        return tol
+
+    hold(lm.forward(card, cfg, tokens=toks.to(cuda_device))[0],
+         lm.forward(cpu, cfg, tokens=toks)[0])
+    got, gc = lm.prefill(card, cfg, tokens=toks[:, :40].to(cuda_device),
+                         max_len=44)
+    want, wc = lm.prefill(cpu, cfg, tokens=toks[:, :40], max_len=44)
+    hold(got, want)
+    for i in range(40, 44):
+        got, gc = lm.decode_step(card, cfg, i, gc,
+                                 token=toks[:, i].to(cuda_device))
+        want, wc = lm.decode_step(cpu, cfg, i, wc, token=toks[:, i])
+        tol = hold(got, want)
+    for g, w in zip(gc, wc):
+        g, w = (list(c.values()) if isinstance(c, dict) else c
+                for c in (g, w))
+        assert [(t.shape, t.dtype) for t in g] == [(t.shape, t.dtype)
+                                                   for t in w]
+    out = Engine(cfg, card, max_len=40, device=cuda_device).generate(
+        toks[:, :24], 16)
+    logits, _ = lm.forward(card, cfg, tokens=torch.cat(
+        [toks[:, :24].to(cuda_device), out], dim=1))
+    tf = logits[:, 23:-1]
+    top2 = tf.topk(2, dim=-1).values
+    off = tf.argmax(-1).to(torch.int32) != out
+    assert bool(((top2[..., 0] - top2[..., 1])[off] <= tol).all())
+
+
+def test_linear_scan_on_card_matches_sequential(cuda_device):
+    """The RG-LRU's log-depth scan at S = 1024 on the card: the CPU's bits
+    (one IEEE product or sum at a time, in the same tree) and within 32
+    fp32 ulps of the largest h of the sequential recurrence."""
+    from repro_torch.models import ssm
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.uniform(0.9, 0.999, (2, 1024, 256))
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((2, 1024, 256))
+                         .astype(np.float32))
+    ga, gb = ssm.linear_scan(a.to(cuda_device), b.to(cuda_device))
+    ca, cb = ssm.linear_scan(a, b)
+    assert torch.equal(ga.cpu(), ca) and torch.equal(gb.cpu(), cb)
+    seq = ssm.linear_scan_naive(a.to(cuda_device), b.to(cuda_device))
+    assert (gb - seq).abs().max().item() <= (32 * 2.0 ** -23
+                                             * seq.abs().max().item())
