@@ -205,10 +205,38 @@ that fails raises. Phases:
      which must print its tok/s line (mamba2: the engine's tokens). No port
      kernel runs on this path (the reference's SSD and RG-LRU are XLA ops):
      every count must stay 0.
+ 14. MLA and the single-device MoE FFN (slice 10, ``models/attention.py``
+     and ``models/moe.py``) at full width, random weights from
+     ``lm.init_params_numpy(cfg, 0)``: minicpm3-4b (62 MLA layers,
+     4,261.90 M parameters), deepseek-moe-16b cut from 28 to 4 layers (the
+     dense first layer and 3 MoE layers; 2,267.04 M) and
+     qwen3-moe-235b-a22b cut from 94 to 2 layers (6,220.17 M). For each:
+     (a) the weights on the card (the MoE router and MLA's ``wuk`` /
+     ``wuv`` fp32, the experts bf16), their bytes and
+     ``max_memory_allocated``; (b) the teacher-forced logits of 2 x 64
+     seeded tokens and the MoE archs' summed aux, on the card and through
+     the port's CPU path, held to a pasted JAX CPU run of the reference
+     (constants below) within bars fixed before the first card run, the
+     argmax equal wherever the reference's top-2 gap exceeds the bar; the
+     (token, layer) routes the card and the CPU path choose differently;
+     (c) ``Engine.generate`` at the launcher's defaults (4 x 32 + 32) and
+     on 2 x 1024 + 16 (minicpm3-4b: two q_blocks of 512), held as in phase
+     12, a MoE token only where no layer dropped one of its pairs in either
+     call and both routed it alike (the others counted; a route that
+     differs on an undropped token must be a near-tie); prefill ms, decode
+     ms a step, tokens/s, the prefill's ``dropped_frac``, one decode step's
+     device kernels, busy ms and idle share beside its byte bound (every
+     weight read once: the MoE buffer runs every expert; the caches; the
+     logits); peak memory; then the launcher at its defaults for
+     minicpm3-4b (the engine's tokens) and with ``--smoke`` for the MoE
+     archs (deepseek-moe-16b's 28 layers, 16,375.73 M parameters, served
+     in 133 s, most of it numpy init: PERF.md). No port kernel runs on
+     this path (the reference's MLA and MoE are XLA ops): every count must
+     stay 0.
 
 Every kernel count is set to 0 just before each main-path run (phases 2, 3,
-5, 7, 8, 9, 10, 11, 12 and 13) and read just after. The last lines are the
-``{"kernels": [...]}`` report, the card line from ``nvidia-smi`` and
+5, 7, 8, 9, 10, 11, 12, 13 and 14) and read just after. The last lines are
+the ``{"kernels": [...]}`` report, the card line from ``nvidia-smi`` and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -3064,22 +3092,30 @@ def serve_logits(torch, lm, engine, prompts, gen):
 
 
 def teacher_forced(torch, lm, model, cfg, name, prompts, tokens, steps,
-                   tol=P12_DECODE_TOL, tag="phase12 c"):
+                   tol=P12_DECODE_TOL, tag="phase12 c", logits=None,
+                   held=None):
     """The reference's contract: generated tokens are the argmax of
     ``forward`` over prompt + generated tokens, except where that forward's
     top-2 gap is under the decode-vs-forward logit difference, which must
-    be within ``tol``."""
+    be within ``tol``. ``logits``: that forward's, if already computed;
+    ``held``: a (B, gen) mask of the tokens held (default all; phase 14
+    leaves out MoE tokens that were dropped or routed otherwise)."""
     s = prompts.shape[1]
-    logits, _ = lm.forward(model, cfg, tokens=torch.cat([prompts, tokens],
-                                                        dim=1))
+    if logits is None:
+        logits, _ = lm.forward(model, cfg,
+                               tokens=torch.cat([prompts, tokens], dim=1))
     tf = logits[:, s - 1:-1]
-    diff = float((steps - tf).abs().max())
+    if held is None:
+        held = torch.ones(tokens.shape, dtype=torch.bool,
+                          device=tokens.device)
+    gaps = (steps - tf).abs().amax(-1)
+    diff = float(gaps[held].max()) if bool(held.any()) else 0.0
     top2 = tf.topk(2, dim=-1).values
     gap = top2[..., 0] - top2[..., 1]
     check(diff <= tol, f"{tag} {name}: max |decode - forward logit| {diff} "
           f"> {tol}")
     mism = tf.argmax(-1) != tokens
-    unexplained = int((mism & (gap >= diff)).sum())
+    unexplained = int((mism & held & (gap >= diff)).sum())
     where = [(int(b), int(i), float(gap[b, i]))
              for b, i in mism.nonzero().tolist()]
     check(unexplained == 0, f"{tag} {name}: {unexplained} generated "
@@ -3734,6 +3770,705 @@ def phase13(torch, np):
     return out
 
 
+# Slice 10: MLA and the single-device MoE FFN at full width, random weights
+# from lm.init_params_numpy(cfg, 0): minicpm3-4b at full width and depth (62
+# MLA layers, d_model 2560, 40 heads, q_lora 768, kv_lora 256, nope 64 /
+# rope 32 / v 64, SwiGLU 6400, vocab 73,448 untied, q_block 512; 4,261.90 M
+# parameters), deepseek-moe-16b at full width with its depth cut from 28
+# to 4 layers (the dense first layer, SwiGLU 10,944, and 3 MoE layers of 64
+# routed experts of 1,408, top-6 unnormalised, and 2 shared; 16 MHA heads
+# of 128, vocab 102,400; 2,267.04 M) and qwen3-moe-235b-a22b at full width
+# cut from 94 to 2 layers (128 experts of 1,536, top-8 renormalised, no
+# shared; GQA 64 / 4 heads of 128 with QK-norm, vocab 151,936; 6,220.17 M).
+# The cuts: the JAX CPU run below holds the weights on the host (the full
+# deepseek-moe-16b is 16,375.73 M, qwen3-moe-235b-a22b 235,093.63 M, no
+# single card holds it).
+# (b) holds the teacher-forced logits of 2 x 64 tokens from
+# np.random.default_rng(P14_SEED) and the summed MoE aux to a JAX CPU run of
+# the reference on the same numpy weights, each leaf handed over at the
+# dtype the reference computes with (bf16 where it casts at use: the same
+# bits; the MoE router and MLA's wuk / wuv fp32), drawn leaf by leaf so the
+# host never holds the fp32 tree (peak 15, 25 and 44 GB for deepseek,
+# minicpm3 and qwen3, as XLA's CPU dots widen the bf16 weights to fp32;
+# 1-3 min on an 8-core CPU host), for arch in P14_ARCHS:
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "import dataclasses, jax
+#   import numpy as np, jax.numpy as jnp; from chip_smoke import *
+#   from repro.configs import get_config; from repro.models import lm
+#   from repro_torch.models import lm as tlm
+#   arch = 'minicpm3-4b'; cfg = dataclasses.replace(get_config(arch),
+#       n_layers=P14_LAYERS[arch])
+#   def leaf(path, spec):
+#       n = [k.key for k in path]; dt = (jnp.bfloat16 if tlm.bf16_leaf(n)
+#           else jnp.float32)
+#       return jnp.asarray(tlm._draw('/'.join(n), *spec, 0)).astype(dt)
+#   p = jax.tree_util.tree_map_with_path(leaf, tlm.param_shapes(cfg),
+#       is_leaf=lambda v: isinstance(v, tuple) and len(v) == 2
+#       and isinstance(v[1], str))
+#   t = np.random.default_rng(P14_SEED).integers(0, cfg.vocab_size,
+#       (2, 64), dtype=np.int32)
+#   x, aux = jax.jit(lm.forward, static_argnums=1)(p, cfg, jnp.asarray(t))
+#   x = np.asarray(x); s = np.sort(x, -1)
+#   print(x.argmax(-1).ravel().tolist(), (s[..., -1] - s[..., -2]).ravel()
+#         .tolist(), [float(x[c]) for c in p12_coords(x.argmax(-1),
+#         P14_FIXED_V[arch])], float(aux))"
+# The bars were fixed before the first card run, from the port's CPU path
+# on the same weights and tokens against these constants (the forward of
+# the port's model on the CPU): minicpm3-4b 0.17188 at the coordinates
+# (0.41785 over all logits, whose largest is 5.47; the reference itself
+# moves 0.09375 there between q_block 16 and its default), deepseek-moe-16b
+# 0.0625 (0.17188; reference 0.03125), qwen3-moe-235b-a22b 0.125 (1.2979:
+# a token routed or dropped otherwise moves its whole row; reference
+# 0.09375); aux 3.5e-5 and 4.0e-5 relative (reference 9e-6, 3.9e-5). Each
+# bar is about 2.4 times the reading. A near-tie route that the card takes
+# otherwise than the CPU path moves the card's aux past its bar (run DA:
+# qwen3-moe, one flip in the first MoE layer at a 3.7e-5 probability gap,
+# 1.81e-4 relative), so the card's aux is held on every run to its fp64
+# recomputation from the router logits and routes it recorded, within
+# P14_AUX_FP64_RTOL (a 128-term fp32 sum's worst rounding, 128 x 2^-24 =
+# 7.6e-6, rounded up; the port's CPU path reads 1.9e-8 and 7.6e-8), with
+# every route that differs from the CPU path's a near-tie (P14_ROUTE_TIE)
+# and the CPU path's aux within P14_AUX_RTOL of the reference's.
+# Decode vs forward: the published capacity factor drops pairs in the
+# forward (7-56%) and none in a decode step, and a dropped pair moves a
+# token's later layers by a whole expert row, so every token is held there
+# only to a loose bar (P14_DECODE_ALL_TOL). The tight bar holds the tokens
+# of a copy of the config whose capacity (C = T) drops no pair, but for a
+# token that decode and forward route otherwise, whose first differing
+# layer must be a near-tie (the forward's k-th and (k+1)-th router
+# probabilities within P14_ROUTE_TIE; the CPU's widest 5.5e-4). The port's
+# CPU readings: minicpm3-4b 0.40039 at 2 x 256 + 16 (no MoE); on the
+# no-drop copy deepseek-moe-16b 0.046875 at 4 x 32 + 32 (11 of 128 tokens
+# routed otherwise) and 0.03125 at 2 x 256 + 16 (2 of 32),
+# qwen3-moe-235b-a22b 0.0625 (6 of 128) and 0.046875 (2 of 32); at the
+# published factor over every token deepseek 0.42578 and qwen3 3.125.
+P14_ARCHS = ("minicpm3-4b", "deepseek-moe-16b", "qwen3-moe-235b-a22b")
+P14_SEED = 14
+P14_LAYERS = {"minicpm3-4b": 62, "deepseek-moe-16b": 4,
+              "qwen3-moe-235b-a22b": 2}
+P14_PARAMS_M = {"minicpm3-4b": 4261.90, "deepseek-moe-16b": 2267.04,
+                "qwen3-moe-235b-a22b": 6220.17}
+P14_FIXED_V = {"minicpm3-4b": (0, 1, 4096, 65536, 73447),
+               "deepseek-moe-16b": (0, 1, 4096, 65536, 102399),
+               "qwen3-moe-235b-a22b": (0, 1, 4096, 65536, 151935)}
+P14_TOL = {"minicpm3-4b": 0.4, "deepseek-moe-16b": 0.15,
+           "qwen3-moe-235b-a22b": 0.3}
+P14_AUX_RTOL = {"deepseek-moe-16b": 1e-4, "qwen3-moe-235b-a22b": 1e-4}
+P14_AUX_FP64_RTOL = 1e-5
+# tokens of the no-drop copy routed alike (minicpm3-4b: all); at the
+# published capacity factor every token, dropped ones included
+P14_DECODE_TOL = {"minicpm3-4b": 0.8, "deepseek-moe-16b": 0.2,
+                  "qwen3-moe-235b-a22b": 0.3}
+P14_DECODE_ALL_TOL = {"deepseek-moe-16b": 0.9, "qwen3-moe-235b-a22b": 6.5}
+P14_ROUTE_TIE = 1e-3
+P14_LAUNCH_SMOKE = ("qwen3-moe-235b-a22b",)
+P14_LONG = (2, 1024, 16)   # minicpm3-4b: two q_blocks of 512
+P14_REF = {
+    "minicpm3-4b": dict(
+        argmax=(
+            21348, 46715, 6792, 60597, 3323, 30838, 65004, 39468, 20030, 28732,
+            47245, 71959, 21363, 69932, 21548, 29802, 53076, 44525, 10236,
+            16238, 55924, 8904, 27651, 40460, 3029, 58285, 32027, 44551, 377,
+            1463, 26355, 33997, 43276, 12370, 2706, 38903, 31235, 55289, 28597,
+            67344, 50369, 34519, 62696, 26822, 53447, 29578, 70868, 52977,
+            40475, 53923, 64031, 42379, 42570, 3272, 58156, 21340, 3587, 1755,
+            7008, 29626, 13844, 44163, 67082, 69937, 3023, 6982, 36125, 47438,
+            63248, 22405, 9324, 42444, 3633, 14159, 37034, 47944, 9420, 31101,
+            57768, 68091, 13389, 56027, 26334, 27609, 25351, 11138, 37723,
+            15066, 29666, 72359, 21700, 38495, 65699, 31229, 60360, 25840,
+            18917, 49668, 49067, 8815, 58377, 71424, 48780, 36051, 50008,
+            36674, 48887, 6435, 46029, 32305, 70993, 56720, 25308, 600, 51016,
+            53497, 16249, 55404, 2702, 5014, 14231, 27253, 50105, 66001, 6672,
+            6657, 49878, 50338),
+        gap=(
+            0.015625, 0.28125, 0.09375, 0.375, 0.125, 0.140625, 0.09375, 0.375,
+            0.0625, 0.03125, 0.0, 0.21875, 0.03125, 0.6875, 0.125, 0.21875,
+            0.09375, 0.09375, 0.0, 0.0625, 0.0625, 0.53125, 0.03125, 1.296875,
+            0.15625, 0.9375, 0.046875, 0.375, 0.296875, 0.21875, 0.46875,
+            0.34375, 0.25, 0.0625, 0.4375, 0.0625, 0.125, 0.09375, 0.453125,
+            0.609375, 0.0625, 0.75, 0.34375, 0.28125, 0.296875, 0.296875,
+            0.0625, 0.03125, 0.390625, 0.03125, 0.9375, 0.25, 0.09375, 0.0625,
+            0.15625, 0.71875, 0.453125, 0.6875, 0.3125, 0.65625, 0.03125,
+            0.03125, 0.125, 0.09375, 0.59375, 0.109375, 0.125, 0.0, 0.34375,
+            0.21875, 0.03125, 0.21875, 0.03125, 0.0625, 0.25, 0.4375, 0.0,
+            0.59375, 0.375, 0.125, 0.125, 0.03125, 0.03125, 0.09375, 0.3125,
+            0.21875, 0.03125, 0.03125, 0.15625, 0.0625, 0.09375, 0.03125,
+            0.0625, 0.4375, 0.03125, 0.140625, 0.046875, 0.28125, 0.21875,
+            0.09375, 0.03125, 0.15625, 0.46875, 0.15625, 0.0, 0.0625, 0.09375,
+            0.03125, 0.4375, 0.28125, 0.09375, 0.15625, 0.3125, 0.21875,
+            0.03125, 0.125, 0.15625, 0.6875, 0.0, 0.03125, 0.0, 0.125, 0.21875,
+            0.09375, 0.0, 0.0, 0.1875, 0.0625),
+        logits=(
+            3.984375, 4.71875, 4.25, 4.5, 4.25, 4.09375, 4.4375, 4.53125,
+            4.09375, 4.40625, 4.25, 4.625, 4.03125, 4.71875, 4.09375, 4.65625,
+            4.21875, 4.40625, 4.375, 4.3125, 4.4375, 4.6875, 4.09375, 5.0625,
+            4.1875, 5.28125, 3.8125, 4.375, 4.1875, 4.21875, 4.65625, 4.46875,
+            4.40625, 4.0, 4.5625, 4.46875, 4.34375, 4.28125, 4.375, 4.4375,
+            4.34375, 4.84375, 4.34375, 4.9375, 4.03125, 4.28125, 4.1875,
+            4.09375, 4.28125, 4.0625, 5.1875, 4.65625, 4.46875, 4.34375, 4.5,
+            4.78125, 4.375, 4.8125, 4.375, 4.71875, 4.4375, 4.25, 4.375, 4.25,
+            4.65625, 4.0, 4.125, 4.15625, 4.40625, 4.4375, 4.3125, 4.53125,
+            4.40625, 4.4375, 4.25, 4.75, 4.40625, 4.71875, 4.46875, 4.21875,
+            4.40625, 4.15625, 4.28125, 4.25, 4.34375, 4.375, 4.125, 4.0625,
+            4.3125, 4.4375, 4.21875, 4.15625, 4.15625, 4.53125, 4.03125,
+            4.0625, 4.0, 4.53125, 4.25, 4.21875, 4.28125, 4.40625, 4.5625,
+            4.53125, 4.21875, 3.84375, 4.375, 4.1875, 4.4375, 4.625, 4.40625,
+            4.3125, 4.375, 4.625, 4.34375, 4.15625, 4.09375, 4.875, 4.3125,
+            4.21875, 4.25, 4.1875, 4.4375, 4.46875, 4.28125, 4.28125, 3.953125,
+            4.34375, -2.28125, 0.06591796875, -1.90625, -0.294921875,
+            -0.93359375, 0.54296875, 0.88671875, -0.08740234375, 0.1923828125,
+            -1.1640625, 0.8203125, -1.4453125, 0.81640625, 0.369140625, -0.5,
+            -1.1171875, -0.6484375, 0.6640625, 0.83984375, 0.318359375,
+            -1.109375, 0.26953125, -1.5625, -0.609375, 0.34765625, 0.474609375,
+            -1.3359375, -0.2490234375, 0.51171875, 1.421875, -1.8515625,
+            -0.35546875, -1.6640625, 0.625, 1.21875, 0.61328125, 1.71875,
+            -1.734375, -1.203125, -1.0390625),
+        aux=0.0),
+    "deepseek-moe-16b": dict(
+        argmax=(
+            61019, 56591, 32279, 850, 59195, 35653, 21618, 88857, 76290, 62761,
+            86947, 80822, 76680, 89385, 30945, 80883, 47420, 96314, 17885,
+            7638, 88665, 35653, 2754, 48555, 64314, 89385, 82313, 64203, 21111,
+            37332, 3185, 87998, 4931, 77794, 84907, 51725, 17967, 85496, 58025,
+            43766, 101170, 66747, 12218, 15848, 33306, 26508, 52703, 96704,
+            49788, 58660, 5293, 5438, 60796, 71751, 7836, 51721, 17975, 59430,
+            73181, 31244, 94787, 37332, 14134, 88766, 61615, 87162, 70172,
+            58937, 73993, 77737, 97257, 90788, 38501, 6060, 97757, 3318, 2094,
+            14068, 47216, 4006, 102250, 25444, 94825, 62425, 96566, 78579,
+            97757, 77053, 30610, 97257, 457, 77476, 9011, 72774, 68835, 18182,
+            28524, 17351, 85672, 32206, 84718, 27716, 32206, 1930, 93614,
+            60176, 4729, 78863, 56930, 54321, 50906, 31078, 30550, 44511, 2348,
+            97454, 68835, 57568, 52713, 48091, 27268, 12012, 101381, 57881,
+            4845, 48218, 7494, 58592),
+        gap=(
+            0.265625, 0.265625, 0.09375, 0.09375, 0.28125, 0.171875, 0.0625,
+            0.015625, 0.09375, 0.34375, 0.34375, 0.109375, 0.328125, 0.265625,
+            0.015625, 0.359375, 0.0625, 0.046875, 0.140625, 0.1875, 0.125,
+            0.171875, 0.328125, 0.234375, 0.21875, 0.296875, 0.03125, 0.0,
+            0.015625, 0.015625, 0.03125, 0.046875, 0.015625, 0.328125,
+            0.203125, 0.0625, 0.390625, 0.03125, 0.0, 0.171875, 0.15625,
+            0.28125, 0.453125, 0.109375, 0.078125, 0.140625, 0.03125, 0.40625,
+            0.09375, 0.328125, 0.1875, 0.296875, 0.1875, 0.078125, 0.03125,
+            0.03125, 0.15625, 0.40625, 0.078125, 0.046875, 0.0625, 0.015625,
+            0.28125, 0.0625, 0.46875, 0.09375, 0.03125, 0.234375, 0.203125,
+            0.640625, 0.484375, 0.40625, 0.03125, 0.15625, 0.25, 0.125,
+            0.578125, 0.078125, 0.0625, 0.21875, 0.015625, 0.234375, 0.1875,
+            0.015625, 0.1875, 0.046875, 0.1875, 0.078125, 0.171875, 0.015625,
+            0.15625, 0.09375, 0.921875, 0.0625, 0.09375, 0.90625, 0.09375,
+            0.484375, 0.09375, 0.015625, 0.5625, 0.53125, 0.03125, 0.171875,
+            0.65625, 0.0625, 0.96875, 0.25, 0.15625, 0.25, 0.21875, 0.046875,
+            0.109375, 0.296875, 0.015625, 0.171875, 0.015625, 0.125, 0.0625,
+            0.015625, 0.1875, 0.125, 0.046875, 0.59375, 0.34375, 0.234375,
+            0.265625, 0.171875),
+        logits=(
+            3.984375, 4.1875, 3.640625, 3.96875, 3.953125, 4.15625, 3.71875,
+            3.78125, 4.15625, 4.1875, 4.40625, 3.984375, 4.3125, 4.25, 3.8125,
+            3.890625, 3.65625, 3.84375, 3.953125, 3.734375, 4.03125, 3.828125,
+            4.0625, 3.921875, 4.15625, 3.796875, 3.75, 3.640625, 3.546875,
+            3.9375, 3.53125, 3.734375, 3.8125, 4.21875, 4.1875, 3.71875, 4.25,
+            3.796875, 3.65625, 3.65625, 4.21875, 4.0, 4.125, 3.875, 3.703125,
+            3.765625, 3.84375, 4.03125, 3.78125, 4.21875, 3.875, 4.03125,
+            3.96875, 3.9375, 4.0, 3.765625, 3.984375, 4.1875, 3.84375,
+            3.828125, 3.828125, 3.90625, 4.375, 3.921875, 4.0625, 3.625,
+            3.90625, 3.859375, 4.0625, 4.46875, 4.4375, 4.15625, 3.71875,
+            4.28125, 4.09375, 3.828125, 4.28125, 3.890625, 3.84375, 4.125,
+            3.765625, 4.0625, 3.6875, 3.65625, 3.890625, 3.828125, 3.890625,
+            3.8125, 3.890625, 3.84375, 3.921875, 4.25, 4.75, 3.6875, 3.9375,
+            4.9375, 3.640625, 4.15625, 3.578125, 3.953125, 4.375, 4.15625,
+            3.71875, 3.96875, 4.5, 3.796875, 4.8125, 3.921875, 3.6875,
+            3.921875, 4.15625, 3.796875, 3.859375, 4.125, 3.8125, 4.0, 3.78125,
+            3.6875, 3.828125, 3.796875, 3.65625, 4.125, 3.953125, 4.375, 4.125,
+            3.75, 4.03125, 3.96875, 0.484375, -0.8203125, -0.921875,
+            -0.30859375, 0.2099609375, -1.15625, 0.357421875, -0.6328125,
+            -0.6484375, 0.255859375, -0.28125, -0.7265625, 0.6796875,
+            -0.828125, 0.828125, -0.91796875, -0.6953125, 1.1171875,
+            -0.1943359375, 2.1875, -0.396484375, 1.171875, 0.162109375,
+            -0.76953125, 1.359375, -0.67578125, 0.77734375, -0.3125,
+            -0.1083984375, 0.6640625, -0.5625, 1.0390625, -0.0322265625,
+            0.021728515625, 2.09375, -0.169921875, -0.4296875, 1.140625,
+            -0.1982421875, 0.5703125),
+        aux=0.06647983193397522),
+    "qwen3-moe-235b-a22b": dict(
+        argmax=(
+            49740, 11408, 22650, 126051, 53833, 122788, 40204, 68109, 122613,
+            122613, 63203, 112219, 122613, 116469, 87718, 39427, 120643,
+            133247, 35262, 139070, 35262, 127697, 136540, 136540, 30700, 35262,
+            134648, 35262, 35262, 9239, 98992, 62862, 80787, 136540, 136540,
+            80787, 80787, 134720, 134720, 136540, 80787, 136540, 134720,
+            134720, 134720, 134720, 60710, 136540, 98992, 80787, 80787, 80787,
+            80787, 134720, 94007, 5851, 134720, 38927, 80787, 80787, 80787,
+            134720, 80787, 117420, 114643, 23286, 100157, 122128, 108493,
+            108493, 88689, 134139, 124558, 88689, 8593, 41677, 25415, 8083,
+            88689, 49385, 3379, 16525, 88689, 111302, 60506, 123942, 32074,
+            5317, 135906, 71359, 8083, 124558, 69669, 11147, 113609, 69669,
+            149806, 6, 69669, 60411, 32074, 81649, 133375, 69865, 61147, 69669,
+            21193, 122104, 9229, 100070, 117761, 26745, 105749, 21933, 110118,
+            57838, 105485, 53999, 26745, 110118, 36948, 70440, 113793, 70440,
+            4939, 26745, 53999, 70440),
+        gap=(
+            0.03125, 0.03125, 0.4375, 0.75, 0.28125, 0.03125, 0.21875, 0.59375,
+            0.09375, 0.375, 0.25, 0.3125, 0.40625, 0.125, 0.5, 0.21875,
+            0.59375, 0.78125, 0.0, 0.28125, 0.09375, 0.21875, 0.0625, 0.0625,
+            0.15625, 0.0625, 0.21875, 0.125, 0.15625, 0.0, 0.1875, 0.15625,
+            0.6875, 0.71875, 1.0, 0.21875, 0.375, 0.78125, 0.4375, 0.0625,
+            0.375, 0.40625, 0.53125, 0.6875, 0.21875, 0.4375, 0.28125, 0.625,
+            0.25, 0.0625, 0.53125, 0.625, 0.375, 1.09375, 0.0625, 0.28125,
+            0.40625, 0.0, 0.0625, 0.625, 0.4375, 0.96875, 0.71875, 0.15625,
+            0.15625, 0.59375, 0.03125, 0.09375, 0.3125, 0.03125, 0.4375,
+            0.0625, 0.21875, 0.09375, 0.0, 0.03125, 0.0625, 0.28125, 0.4375,
+            0.125, 0.75, 0.0625, 0.40625, 0.09375, 0.78125, 0.15625, 0.0625,
+            0.0625, 0.0625, 0.21875, 0.21875, 0.5625, 0.75, 0.09375, 0.125,
+            0.09375, 0.09375, 0.09375, 0.15625, 0.03125, 0.09375, 0.4375,
+            0.0625, 0.1875, 0.21875, 0.5625, 0.125, 0.03125, 0.25, 0.0625,
+            0.28125, 0.0, 0.125, 0.0, 0.0, 0.34375, 0.03125, 0.59375, 0.1875,
+            0.09375, 0.09375, 0.21875, 0.25, 0.625, 0.0, 0.03125, 0.15625,
+            0.71875),
+        logits=(
+            5.4375, 5.65625, 6.125, 5.875, 5.78125, 5.5, 5.53125, 5.90625, 5.5,
+            6.1875, 5.78125, 5.6875, 5.71875, 5.5, 6.21875, 5.9375, 5.84375,
+            6.34375, 5.78125, 5.75, 5.40625, 5.5625, 5.6875, 5.6875, 5.90625,
+            5.625, 6.03125, 5.59375, 5.78125, 5.125, 5.78125, 5.625, 6.15625,
+            6.0625, 6.46875, 5.96875, 6.0, 6.46875, 5.90625, 5.84375, 6.125,
+            6.375, 6.0625, 6.625, 6.375, 6.25, 5.71875, 6.0625, 5.8125, 5.625,
+            6.3125, 6.25, 6.0, 6.46875, 5.625, 6.25, 6.28125, 5.21875, 5.59375,
+            6.3125, 6.46875, 6.65625, 6.125, 5.6875, 5.5, 5.75, 5.625, 5.21875,
+            5.375, 5.5625, 5.59375, 5.25, 5.625, 5.25, 4.9375, 5.53125,
+            5.84375, 5.625, 5.875, 5.46875, 5.875, 5.625, 5.5625, 5.28125,
+            6.375, 5.34375, 5.625, 5.65625, 5.3125, 5.53125, 5.6875, 6.03125,
+            5.84375, 5.625, 5.40625, 5.34375, 5.46875, 5.65625, 5.65625,
+            5.3125, 5.53125, 5.5625, 5.65625, 5.3125, 5.625, 5.65625, 5.40625,
+            5.375, 5.53125, 5.09375, 5.21875, 5.1875, 5.25, 5.15625, 5.15625,
+            5.53125, 5.46875, 5.78125, 5.28125, 5.4375, 5.375, 5.5625, 5.625,
+            6.0, 5.25, 5.34375, 5.53125, 6.15625, -0.384765625, 0.78515625,
+            0.34765625, -2.15625, 1.1015625, -1.5078125, -2.453125, 2.234375,
+            -0.8203125, 2.8125, -1.5703125, -2.140625, 0.75, 0.78515625,
+            2.421875, -2.078125, -1.71875, 1.109375, 1.28125, 3.046875,
+            0.79296875, -0.55859375, -0.5234375, 0.455078125, -0.93359375,
+            2.53125, -0.91015625, -0.89453125, 0.859375, -0.328125, 1.859375,
+            -2.140625, 1.0390625, 0.06884765625, -0.010498046875, 0.7421875,
+            -1.5859375, 0.77734375, 0.166015625, -0.828125),
+        aux=0.06775811314582825),
+}
+
+
+class MoETrace:
+    """Within the ``with`` block, every MoE layer call of the port's
+    ``models.moe`` (``route`` and ``dispatch`` wrapped) appends a record:
+    its router logits (T, E), the chosen experts (T, k, ascending), each
+    token's dropped flag (any of its pairs past the capacity) and the
+    layer's ``dropped_frac`` (the share of pairs dropped). A forward or a
+    prefill adds one record a MoE layer, in layer order; so does each
+    decode step."""
+
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, (moe.route, moe.dispatch)
+        torch = self.torch
+
+        def route(logits, cfg):
+            self.calls.append(dict(logits=logits.float().clone()))
+            return self.orig[0](logits, cfg)
+
+        def dispatch(idx, c, e):
+            out = self.orig[1](idx, c, e)
+            _, st_tok, _, _, keep = out
+            dropped = torch.zeros(idx.shape[0], dtype=torch.int32,
+                                  device=idx.device)
+            dropped.index_add_(0, st_tok, (~keep).int())
+            self.calls[-1].update(idx=idx.sort(-1).values, dropped=dropped > 0,
+                                  dropped_frac=(~keep).float().mean())
+            return out
+
+        moe.route, moe.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route, self.moe.dispatch = self.orig
+
+
+def route_diffs(torch, a, b, k):
+    """(the (token, layer) routes two traces of the same tokens choose
+    differently, the widest k-th vs (k+1)-th router probability gap of
+    ``b`` among them)."""
+    n, widest = 0, 0.0
+    for x, y in zip(a.calls, b.calls):
+        diff = (x["idx"].cpu() != y["idx"].cpu()).any(-1)
+        n += int(diff.sum())
+        if bool(diff.any()):
+            top = torch.softmax(y["logits"].cpu(), -1).topk(k + 1).values
+            widest = max(widest, float((top[:, k - 1] - top[:, k])[diff]
+                                       .max()))
+    return n, widest
+
+
+def aux_fp64(torch, trace, mcfg):
+    """The summed MoE aux of a trace's records (one forward), recomputed
+    in fp64 on the CPU from each MoE layer's router logits and chosen
+    experts as they were recorded: ``moe.route``'s load-balance and z
+    losses weighted by ``mcfg``'s coefficients."""
+    total = 0.0
+    for c in trace.calls:
+        z = c["logits"].cpu().double()
+        e = z.shape[-1]
+        assigned = torch.nn.functional.one_hot(c["idx"].cpu(), e).sum(1)
+        fe = assigned.double().mean(0) / mcfg.top_k
+        balance = e * float((fe * torch.softmax(z, -1).mean(0)).sum())
+        z_loss = float((torch.logsumexp(z, -1) ** 2).mean())
+        total += mcfg.aux_loss_coef * balance + mcfg.z_loss_coef * z_loss
+    return total
+
+
+def moe_held(torch, tf_trace, gen_trace, b, s, gen, k, tie, tag):
+    """The (B, gen) tokens held to the decode-vs-forward bar on a config
+    whose capacity drops no pair (checked): those that the forward over
+    prompt + generated tokens and the call that decoded them (the prefill
+    for the first, a decode step for the others) route to the same experts
+    in every MoE layer. A token's first layer whose routes differ must be
+    a near-tie there: the forward's k-th and (k+1)-th router probabilities
+    within ``tie``. Its later layers then see inputs a whole expert row
+    apart, and may route otherwise at any gap. -> (held, the number of
+    tokens routed otherwise, the largest gap at a first difference)."""
+    n_moe = len(tf_trace.calls)
+    dev = tf_trace.calls[0]["idx"].device
+    flipped = torch.zeros((b, gen), dtype=torch.bool)
+    worst = 0.0
+    fpos = (torch.arange(b)[:, None] * (s + gen)
+            + (s - 1 + torch.arange(gen))[None]).to(dev)
+    last = (torch.arange(b) * s + s - 1).to(dev)
+    for layer in range(n_moe):
+        f = tf_trace.calls[layer]
+        calls = [gen_trace.calls[layer]] + [gen_trace.calls[n_moe * i + layer]
+                                            for i in range(1, gen)]
+        dropped = sum(int(c["dropped"].sum()) for c in calls + [f])
+        check(dropped == 0, f"{tag}: MoE layer {layer} dropped pairs of "
+              f"{dropped} tokens")
+        d_idx = torch.stack([calls[0]["idx"][last]]
+                            + [c["idx"] for c in calls[1:]], 1)
+        diff = (f["idx"][fpos] != d_idx).any(-1).cpu()
+        first = diff & ~flipped
+        if bool(first.any()):
+            top = torch.softmax(f["logits"][fpos], -1).topk(k + 1).values
+            gap = (top[..., k - 1] - top[..., k]).cpu()
+            worst = max(worst, float(gap[first].max()))
+        flipped |= diff
+    check(worst <= tie, f"{tag}: a token's first route that differs between "
+          f"decode and forward lies where the forward's k-th and (k+1)-th "
+          f"probabilities are {worst} apart (near-tie bar {tie})")
+    return ~flipped, int(flipped.sum()), worst
+
+
+def cache_bytes(cache):
+    """Bytes of the attention caches (K/V, or MLA's latent and rope key;
+    the positions left out)."""
+    return sum(t.numel() * t.element_size() for c in cache
+               for n, t in c.items() if n != "pos")
+
+
+def phase14(torch, np):
+    """MLA and the single-device MoE FFN at full width (slice 10)."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {}
+    totals = dict(nn_search=0, candidate_sweep=0, fused_moment_sweep=0,
+                  moment_sweep=0)
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] += v
+
+    for arch in P14_ARCHS:
+        t_arch = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=P14_LAYERS[arch])
+        moe = cfg.ffn == "moe"
+        k = cfg.top_k
+        tag = f"phase14 {arch}"
+        row = out[arch] = dict(layers=cfg.n_layers, full_layers=full.n_layers)
+
+        # (a) weights
+        t0 = time.perf_counter()
+        tree = lm.init_params_numpy(cfg, 0)
+        init_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = lm.params_from_reference(tree, cfg, dev)
+        n_params, w_bytes = lm.param_count(model), lm.param_bytes(model)
+        check(round(n_params / 1e6, 2) == P14_PARAMS_M[arch], f"{tag} a: "
+              f"{n_params} parameters, expected {P14_PARAMS_M[arch]} M")
+        wrong = []
+        for key, buf in model.named_buffers():
+            parts = key.split(".")
+            if parts[-2] in ("router", "wuk", "wuv"):
+                wrong += [key] if buf.dtype != torch.float32 else []
+            elif parts[-2] == "ffn" and parts[-1] in ("wi", "wg", "wo"):
+                wrong += [key] if buf.dtype != torch.bfloat16 else []
+        check(not wrong, f"{tag} a: the router, wuk and wuv must be fp32 "
+              f"and the experts bf16: {wrong[:4]}")
+        row["a"] = dict(params=n_params, weight_bytes=w_bytes, init_s=init_s,
+                        load_peak_bytes=torch.cuda.max_memory_allocated(dev))
+        log(f"{tag} a: {cfg.n_layers} of {full.n_layers} layers, full "
+            f"width, {n_params / 1e6:.2f} M parameters, {w_bytes / 1e9:.4f} "
+            f"GB on the card (bf16 kernels, table and experts; fp32 norms"
+            f"{', router' if moe else ', wuk and wuv'}); numpy init "
+            f"{init_s:.1f} s; max_memory_allocated "
+            f"{row['a']['load_peak_bytes'] / 1e9:.4f} GB")
+
+        # (b) teacher-forced logits and aux against the JAX reference
+        ref = dict(P14_REF[arch], tag=f"{tag} b", tol=P14_TOL[arch],
+                   fixed_v=P14_FIXED_V[arch])
+        tok = torch.from_numpy(np.random.default_rng(P14_SEED).integers(
+            0, cfg.vocab_size, (P12_B, P12_S), dtype=np.int32))
+        with MoETrace(torch) as card_trace:
+            (logits_card, aux_card), _, launches = counted(
+                torch, lambda: lm.forward(model, cfg, tokens=tok.to(dev)))
+        add(launches)
+        row["b_cuda"] = hold_logits(np, "cuda", logits_card, ref)
+        cpu_model = lm.params_from_reference(tree, cfg, "cpu")
+        del tree
+        t0 = time.perf_counter()
+        with MoETrace(torch) as cpu_trace:
+            logits_cpu, aux_cpu = lm.forward(cpu_model, cfg, tokens=tok)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        del cpu_model
+        gc.collect()
+        row["b_cpu"] = hold_logits(np, "cpu", logits_cpu, ref)
+        card_vs_cpu = float((logits_card.cpu() - logits_cpu).abs().max())
+        row["b_cpu"].update(forward_ms=cpu_ms, card_vs_cpu=card_vs_cpu)
+        log(f"{tag} b: card vs the port's CPU path, max |logit diff| over "
+            f"all {logits_cpu.numel()} logits {card_vs_cpu:.6f}; the CPU "
+            f"forward took {cpu_ms:.0f} ms (host clock)")
+        if moe:
+            # The card's aux is held on every run three ways: to its fp64
+            # recomputation from the router logits and routes the card
+            # recorded (its arithmetic); its routes to the CPU path's (a
+            # route that differs must be a near-tie); and the CPU path's
+            # aux to the reference's. A near-tie flip moves the token's
+            # later layers by a whole expert row and the router losses of
+            # every MoE layer after it (run DA), so the card's aux is held
+            # to the reference's bar too where it routed every token as the
+            # CPU path did.
+            rtol = P14_AUX_RTOL[arch]
+            routes = len(card_trace.calls) * P12_B * P12_S
+            flips, widest = route_diffs(torch, card_trace, cpu_trace, k)
+            check(widest <= P14_ROUTE_TIE, f"{tag} b: a route differs "
+                  f"between the card and the CPU path where the CPU's k-th "
+                  f"and (k+1)-th probabilities are {widest} apart (near-tie "
+                  f"bar {P14_ROUTE_TIE})")
+            mcfg = lm.moe_config(cfg)
+            for name, aux, trace in (("cuda", aux_card, card_trace),
+                                     ("cpu", aux_cpu, cpu_trace)):
+                own = aux_fp64(torch, trace, mcfg)
+                own_err = abs(float(aux) - own) / own
+                check(own_err <= P14_AUX_FP64_RTOL, f"{tag} b {name}: aux "
+                      f"{float(aux)} vs {own} recomputed in fp64 from its "
+                      f"own router logits and routes ({own_err:.2e} relative "
+                      f"> {P14_AUX_FP64_RTOL})")
+                err = abs(float(aux) - ref["aux"]) / ref["aux"]
+                row[f"b_{name}"].update(aux=float(aux), aux_rel_err=err,
+                                        aux_fp64=own, aux_fp64_rel_err=own_err)
+                if name == "cpu" or not flips:
+                    check(err <= rtol, f"{tag} b {name}: aux {float(aux)} "
+                          f"vs the reference's {ref['aux']} ({err:.2e} "
+                          f"relative > {rtol})")
+            drops = [int(c["dropped"].sum()) for c in card_trace.calls]
+            row["b_routes"] = dict(routes=routes, card_vs_cpu=flips,
+                                   widest_flip_gap=widest,
+                                   dropped_tokens=drops)
+            held = ("held" if not flips else
+                    "recorded: the card routed otherwise on near-ties")
+            log(f"{tag} b: aux card {float(aux_card):.8f} (its fp64 "
+                f"recomputation {row['b_cuda']['aux_fp64_rel_err']:.2e} "
+                f"relative, bar {P14_AUX_FP64_RTOL}; the reference's "
+                f"{row['b_cuda']['aux_rel_err']:.2e}, {held}), CPU "
+                f"{float(aux_cpu):.8f} (fp64 "
+                f"{row['b_cpu']['aux_fp64_rel_err']:.2e}; the reference's "
+                f"{row['b_cpu']['aux_rel_err']:.2e}), JAX {ref['aux']:.8f} "
+                f"(relative bar {rtol}); {flips} of {routes} (token, layer) "
+                f"routes differ between the card and the CPU path, each a "
+                f"near-tie (widest k-th vs (k+1)-th probability gap "
+                f"{widest:.2e}, bar {P14_ROUTE_TIE}); tokens with a dropped "
+                f"pair a MoE layer (card) {drops}")
+        del logits_card, logits_cpu, card_trace, cpu_trace
+
+        # (c) serving: the launcher's defaults, then 2 x 1024-token prompts
+        b_long, s_long, g_long = P14_LONG
+        runs = (("b4_p32_g32", serve_launch.prompt_tokens(
+            1, 4, 32, cfg.vocab_size), 32),
+                (f"b{b_long}_p{s_long}_g{g_long}",
+                 np.random.default_rng(P14_SEED + 1).integers(
+                     0, cfg.vocab_size, (b_long, s_long), dtype=np.int32),
+                 g_long))
+        row["c"], served = {}, {}
+        for name, prompts, gen in runs:
+            prompts = torch.from_numpy(prompts).to(dev)
+            b, s = prompts.shape
+            engine = Engine(cfg, model, max_len=s + gen, device=dev)
+            with MoETrace(torch) as gen_trace:
+                (toks, steps), wall, launches = counted(
+                    torch, lambda: serve_logits(torch, lm, engine, prompts,
+                                                gen))
+            add(launches)
+            again = Engine(cfg, model, max_len=s + gen, device=dev).generate(
+                prompts, gen)
+            check(bool(torch.equal(toks, again)), f"{tag} c {name}: two "
+                  f"engines gave different tokens")
+            served[name] = toks
+            # the prefill's records come first, one a MoE layer
+            n_moe = len(gen_trace.calls) // gen
+            pre_drop = [float(r["dropped_frac"])
+                        for r in gen_trace.calls[:n_moe]]
+            if moe:
+                # every token at the published capacity factor (drops
+                # move whole expert rows)...
+                tf_logits, _ = lm.forward(model, cfg, tokens=torch.cat(
+                    [prompts, toks], dim=1))
+                every = float((steps - tf_logits[:, s - 1:-1]).abs().max())
+                check(every <= P14_DECODE_ALL_TOL[arch], f"{tag} c {name}: "
+                      f"max |decode - forward logit| over every token "
+                      f"{every} > {P14_DECODE_ALL_TOL[arch]}")
+                del tf_logits, steps
+                # ... and each token held to the tight bar on a copy whose
+                # capacity (C = T) cannot drop a pair, but for a route that
+                # decode and forward choose otherwise on a near-tie
+                held_cfg = dataclasses.replace(
+                    cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+                held_engine = Engine(held_cfg, model, max_len=s + gen,
+                                     device=dev)
+                with MoETrace(torch) as gen_trace:
+                    (toks_h, steps), _, launches = counted(
+                        torch, lambda: serve_logits(torch, lm, held_engine,
+                                                    prompts, gen))
+                add(launches)
+                with MoETrace(torch) as tf_trace:
+                    tf_logits, _ = lm.forward(model, held_cfg,
+                                              tokens=torch.cat(
+                                                  [prompts, toks_h], dim=1))
+                held, n_flip, worst = moe_held(
+                    torch, tf_trace, gen_trace, b, s, gen, k, P14_ROUTE_TIE,
+                    f"{tag} c {name}")
+                c = teacher_forced(torch, lm, model, held_cfg, name, prompts,
+                                   toks_h, steps, tol=P14_DECODE_TOL[arch],
+                                   tag=f"{tag} c", logits=tf_logits,
+                                   held=held.to(dev))
+                c["decode_vs_forward_all"] = every
+                log(f"{tag} c {name}: at capacity factor "
+                    f"{held_cfg.capacity_factor:.4f} (no pair dropped) "
+                    f"decode vs forward held at {int(held.sum())} of "
+                    f"{held.numel()} tokens, {n_flip} left out for a route "
+                    f"that differs (largest k-th vs (k+1)-th probability "
+                    f"gap at a token's first difference {worst:.2e}, bar "
+                    f"{P14_ROUTE_TIE}); at the "
+                    f"published {cfg.capacity_factor} over every token "
+                    f"{every:.6f} (bar {P14_DECODE_ALL_TOL[arch]})")
+                del tf_logits, tf_trace, held_engine, toks_h
+            else:
+                held = torch.ones(toks.shape, dtype=torch.bool)
+                n_flip = 0
+                c = teacher_forced(torch, lm, model, cfg, name, prompts, toks,
+                                   steps, tol=P14_DECODE_TOL[arch],
+                                   tag=f"{tag} c")
+            del gen_trace
+            prefill_ms, step_ms, issue_ms, cache = decode_timing(
+                torch, lm, model, cfg, prompts, gen - 1)
+            pos = s + gen - 1
+            nxt = toks[:, -1]
+            kernels, busy, host_launches = device_profile(
+                torch, lambda: lm.decode_step(model, cfg, pos, cache,
+                                              token=nxt))
+            kv_bytes = cache_bytes(cache)
+            # every weight read once (the MoE buffer runs every expert), the
+            # caches read, the fp32 logits written
+            step_bytes = w_bytes + kv_bytes + b * cfg.vocab_size * 4
+            bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
+            idle = None if busy is None else 1 - busy / step_ms
+            c.update(batch=b, prompt=s, gen=gen, wall_ms=wall,
+                     tokens_per_s=b * gen / wall * 1e3, prefill_ms=prefill_ms,
+                     decode_ms_per_token=step_ms, decode_issue_ms=issue_ms,
+                     decode_tokens_per_s=b / step_ms * 1e3,
+                     q_block=(bool(cfg.q_block) and s > cfg.q_block
+                              and s % cfg.q_block == 0),
+                     step_kernels=kernels, step_busy_ms=busy,
+                     step_host_launches=host_launches, step_idle=idle,
+                     step_bytes=step_bytes, kv_bytes=kv_bytes,
+                     step_bound_ms=bound_ms, held=int(held.sum()),
+                     left_out_flipped=n_flip,
+                     prefill_dropped_frac=pre_drop)
+            row["c"][name] = c
+            blocks = (f" ({s // cfg.q_block} q_blocks of {cfg.q_block})"
+                      if c["q_block"] else "")
+            profiled = ("no device activity recorded" if busy is None else
+                        f"{busy:.4f} ms busy, idle {idle:.1%}")
+            drop = (f" | the prefill's dropped_frac a MoE layer "
+                    f"{[round(x, 4) for x in pre_drop]}" if moe else "")
+            log(f"{tag} c {name}: B={b} prompt {s}{blocks} gen {gen} | "
+                f"generate {wall:.1f} ms wall, {c['tokens_per_s']:.1f} tok/s "
+                f"| prefill {prefill_ms:.3f} ms | decode {step_ms:.3f} ms a "
+                f"step ({c['decode_tokens_per_s']:.1f} tok/s; the host queues "
+                f"a step in {issue_ms:.3f} ms) | one step: {kernels} device "
+                f"kernels ({host_launches} host launches), {profiled} | byte "
+                f"bound {bound_ms:.4f} ms ({step_bytes / 1e9:.4f} GB: weights "
+                f"{w_bytes / 1e9:.4f} GB, caches {kv_bytes / 1e6:.2f} MB), "
+                f"{bound_ms / step_ms:.1%} of the step{drop}")
+            del cache, steps, engine
+        row["c_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        log(f"{tag} c: max_memory_allocated over (a)-(c) "
+            f"{row['c_peak_bytes'] / 1e9:.4f} GB")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the launcher at its defaults: minicpm3-4b and deepseek-moe-16b
+        # at full width and depth (62 and 28 layers; minicpm3-4b's tokens
+        # are the engine's on the same weights); qwen3-moe-235b-a22b with
+        # --smoke (its 94 layers are 470 GB in bf16: no card holds them)
+        smoke = arch in P14_LAUNCH_SMOKE
+        launch_cfg = get_smoke(arch) if smoke else full
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            launched, wall, launches = counted(
+                torch, lambda: serve_launch.main(
+                    ["--arch", arch, "--device", "cuda:0"]
+                    + (["--smoke"] if smoke else [])))
+        add(launches)
+        lines = [ln for ln in text.getvalue().splitlines() if "tok/s" in ln]
+        check(len(lines) == 1, f"{tag} launcher: no tok/s line in "
+              f"{text.getvalue()!r}")
+        check(tuple(launched.shape) == (4, 32) and int(launched.min()) >= 0
+              and int(launched.max()) < launch_cfg.vocab_size, f"{tag} "
+              f"launcher: bad tokens {tuple(launched.shape)}")
+        if launch_cfg.n_layers == cfg.n_layers and not smoke:
+            check(bool(torch.equal(launched, served["b4_p32_g32"])),
+                  f"{tag} launcher: its tokens differ from the engine's on "
+                  f"the same weights and prompts")
+        row["launcher"] = dict(line=lines[0], wall_ms=wall,
+                               layers=launch_cfg.n_layers, smoke=smoke)
+        log(f"{tag} launcher (repro_torch.launch.serve --arch {arch}"
+            f"{' --smoke' if smoke else ''}, {launch_cfg.n_layers} layers): "
+            f"{lines[0].strip()} | {wall:.0f} ms with its weight init")
+        del launched
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{tag}: {time.perf_counter() - t_arch:.1f} s")
+    out["launch_totals"] = totals
+    check(sum(totals.values()) == 0, f"phase14: the MLA / MoE LM path "
+          f"launched port kernels {totals}")
+    log(f"phase14: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def compare_minimizers(report):
     """Log each point-to-plane run of phase 7 beside the point-to-point run
     of the same path (phases 2, 3 and 5): iterations and wall ms per
@@ -3837,8 +4572,9 @@ def main(argv=None):
     report["phase11"] = phase11(torch, np, scenes, logs["fused_icp"])
     report["phase12"] = phase12(torch, np)
     report["phase13"] = phase13(torch, np)
+    report["phase14"] = phase14(torch, np)
     totals = {k: v + sum(report[f"phase{p}"]["launch_totals"][k]
-                         for p in (7, 8, 9, 10, 11, 12, 13))
+                         for p in (7, 8, 9, 10, 11, 12, 13, 14))
               for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(

@@ -51,11 +51,12 @@ def round_up(x: int, mult: int) -> int:
 
 def check_fp32_matmul(t: torch.Tensor) -> None:
     """Raise if fp32 matmuls on ``t``'s device would run in TF32, which
-    keeps about three decimal digits and mis-ranks neighbours."""
+    keeps about three decimal digits: it mis-ranks neighbours, MoE experts
+    and MLA's absorbed decode scores."""
     if t.is_cuda and (torch.backends.cuda.matmul.allow_tf32
                       or torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
-            "exact NN search needs IEEE fp32 matmuls: set "
+            "these fp32 products need IEEE fp32 matmuls: set "
             "torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest')")
 

@@ -1,5 +1,5 @@
 """The decoder-LM zoo of the port (``repro.models``' counterpart): plain
 functions on tensors over a :class:`~repro_torch.models.lm.DecoderLM`
-(an ``nn.Module`` tree of the reference's parameter layout). Slice 8.1
-builds the dense block kinds; MLA, SSM and MoE blocks are ROADMAP queue 1
-item 8.2."""
+(an ``nn.Module`` tree of the reference's parameter layout): every block
+kind of the registry (GQA and MLA attention, Mamba-2's SSD, Griffin's
+RG-LRU) and FFN (dense and the single-device MoE)."""

@@ -1,5 +1,5 @@
-"""Config-driven decoder LM: forward / prefill / decode (the dense path of
-``repro.models.lm``).
+"""Config-driven decoder LM: forward / prefill / decode (port of
+``repro.models.lm`` without its sharding rules and training loss).
 
 The reference tiles ``block_pattern`` over ``n_layers`` and splits the
 layers into a prefix (MoE-exception layers, unrolled), groups (a scan over
@@ -15,19 +15,24 @@ scales, and the SSM blocks' own initialisers: normal(0.1) conv weights,
 ``A_log = log(1..n_heads)``, unit ``D``, Griffin's ``lambda``), since
 JAX's PRNG cannot be reproduced here; the JAX package takes the same
 arrays as its ``params``. ``params_from_reference`` turns such a tree into
-the port's model, a :class:`DecoderLM`, casting matmul kernels, biases and
-tables to bf16 once (the reference casts them at every use, to the same
-bits) and keeping norm scales, the SSM vectors and the RG-LRU gates
-``w_a`` / ``w_i`` (fp32 matmuls in the reference) fp32.
+the port's model, a :class:`DecoderLM`, casting matmul kernels, biases,
+tables and the MoE experts' ``wi`` / ``wg`` / ``wo`` to bf16 once (the
+reference casts them at every use, to the same bits) and keeping fp32 the
+norm scales, the SSM vectors and the leaves the reference also reads in
+fp32: the RG-LRU gates ``w_a`` / ``w_i``, the MoE router and MLA's
+``wuk`` / ``wuv`` (the absorbed decode's masters; its forward casts them
+to bf16 at use, as the reference does).
 
-Block kinds: ``attn`` and ``local_attn`` with the swiglu / geglu / gelu
-FFN, ``ssd`` (Mamba-2, no FFN) and ``rglru`` (Griffin's recurrent block),
-from ``models.ssm``. A layer's decode state is the KV cache dict of an
-attention layer or the (conv state, recurrent state) tuple of an SSM
-layer. ``mla`` and the MoE FFN raise ``NotImplementedError`` naming
-ROADMAP queue 1 item 8.2. There are no sharding constraints (the
-reference's ``aconstraint`` is a no-op on one device; the partition rules
-are item 8.4); ``loss_fn`` and remat wait for the training item 8.3.
+Block kinds: ``attn`` and ``local_attn``, ``mla`` (latent attention,
+``models.attention``), ``ssd`` (Mamba-2, no FFN) and ``rglru`` (Griffin's
+recurrent block), from ``models.ssm``; FFNs swiglu / geglu / gelu and the
+MoE FFN (``models.moe``) after an optional ``first_k_dense`` prefix of
+SwiGLU layers. A layer's decode state is the cache dict of an attention
+layer (K/V, or MLA's latent ``c`` and ``k_rope``) or the (conv state,
+recurrent state) tuple of an SSM layer. There are no sharding constraints
+(the reference's ``aconstraint`` is a no-op on one device; the partition
+rules and the expert-parallel MoE they select are ROADMAP queue 1 item
+8.4); ``loss_fn`` and remat wait for the training item 8.3.
 """
 from __future__ import annotations
 
@@ -43,15 +48,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 
-PORTED_KINDS = ("attn", "local_attn", "ssd", "rglru")
-PORTED_FFNS = ("swiglu", "geglu", "gelu")
-_ITEM = "ROADMAP queue 1 item 8.2"
-# Leaves cast to bf16 at load (the reference casts them at every use).
-_BF16_LEAVES = ("kernel", "bias", "table")
-# ... except under these: the RG-LRU gates, fp32 matmuls in the reference
-_FP32_DENSE = ("w_a", "w_i")
+# Leaves cast to bf16 at load (the reference casts them at every use): the
+# dense layers' leaves and the MoE experts' raw (E, ...) arrays
+_BF16_LEAVES = ("kernel", "bias", "table", "wi", "wg", "wo")
+# ... except under these, read in fp32 by the reference: the RG-LRU gates,
+# the MoE router, MLA's absorbed-decode masters
+_FP32_DENSE = ("w_a", "w_i", "router", "wuk", "wuv")
 INIT_STDDEV = 0.02  # the reference's default_kernel_init
 CONV_STDDEV = 0.1   # the SSM blocks' conv_w init (models/ssm.py)
 
@@ -66,6 +71,9 @@ def attn_config(cfg: ArchConfig, kind: str) -> attn.AttnConfig:
         qk_norm=cfg.qk_norm,
         window=cfg.window if kind == "local_attn" else 0,
         q_block=cfg.q_block,
+        q_lora_rank=cfg.q_lora_rank, kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_head_dim=cfg.qk_nope_head_dim,
+        qk_rope_head_dim=cfg.qk_rope_head_dim, v_head_dim=cfg.v_head_dim,
         rms_eps=cfg.rms_eps, kv_quant=cfg.kv_quant)
 
 
@@ -79,6 +87,14 @@ def rglru_config(cfg: ArchConfig) -> ssm_lib.RGLRUConfig:
     return ssm_lib.RGLRUConfig(d_model=cfg.d_model,
                                lru_width=cfg.lru_width or cfg.d_model,
                                conv_width=cfg.conv_width)
+
+
+def moe_config(cfg: ArchConfig) -> moe_lib.MoEConfig:
+    return moe_lib.MoEConfig(
+        d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        d_expert=cfg.d_expert, n_shared_experts=cfg.n_shared_experts,
+        normalize_topk=cfg.normalize_topk,
+        capacity_factor=cfg.capacity_factor)
 
 
 def _ffn_kind(cfg: ArchConfig, layer_idx: int, mixer_kind: str) -> str:
@@ -105,29 +121,17 @@ def _layer_plan(cfg: ArchConfig):
     return prefix, reps, suffix, kinds
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a block kind or FFN this slice
-    does not build."""
-    for kind in dict.fromkeys(cfg.layer_kinds):
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet ({_ITEM}"
-                f"; ported: {', '.join(PORTED_KINDS)})")
-    if cfg.ffn not in PORTED_FFNS:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.ffn!r} FFN is not ported yet ({_ITEM}; "
-            f"ported: {', '.join(PORTED_FFNS)})")
-
-
 # ---------------------------------------------------------------------------
 # weights
 # ---------------------------------------------------------------------------
 def _layer_shapes(cfg: ArchConfig, kind: str, ffn_kind: str) -> dict:
     """The reference's parameter layout of one layer (its ``_layer_init``,
-    with ``mamba2_init`` and ``rglru_block_init`` for the SSM kinds): a
-    nested dict of (shape, init) leaves, init one of "normal"
-    (``INIT_STDDEV``), "conv" (``CONV_STDDEV``), "zeros", "ones", "a_log"
-    (log(1..n_heads)) or "lambda" (Griffin's Λ)."""
+    with ``mla_init``, ``mamba2_init``, ``rglru_block_init`` and
+    ``moe_init`` for those kinds): a nested dict of (shape, init) leaves,
+    init one of "normal" (``INIT_STDDEV``), "conv" (``CONV_STDDEV``),
+    "zeros", "ones", "a_log" (log(1..n_heads)) or "lambda" (Griffin's Λ).
+    Raises ``ValueError`` for an unknown block kind or FFN, as the
+    reference does."""
     d = cfg.d_model
 
     def dense(d_in, d_out, bias=False):
@@ -158,7 +162,19 @@ def _layer_shapes(cfg: ArchConfig, kind: str, ffn_kind: str) -> dict:
                  "w_a": dense(w, w, bias=True), "w_i": dense(w, w, bias=True),
                  "lambda": ((w,), "lambda"),
                  "w_out": dense(w, d)}
-    else:
+    elif kind == "mla":
+        a = attn_config(cfg, kind)
+        dqk = a.qk_nope_head_dim + a.qk_rope_head_dim
+        # wdkv fuses the kv-down and rope-k projections (DeepSeek layout)
+        mixer = {"wdq": dense(d, a.q_lora_rank),
+                 "q_norm": {"scale": ((a.q_lora_rank,), "ones")},
+                 "wuq": dense(a.q_lora_rank, a.n_heads * dqk),
+                 "wdkv": dense(d, a.kv_lora_rank + a.qk_rope_head_dim),
+                 "kv_norm": {"scale": ((a.kv_lora_rank,), "ones")},
+                 "wuk": dense(a.kv_lora_rank, a.n_heads * a.qk_nope_head_dim),
+                 "wuv": dense(a.kv_lora_rank, a.n_heads * a.v_head_dim),
+                 "wo": dense(a.n_heads * a.v_head_dim, d)}
+    elif kind in ("attn", "local_attn"):
         a = attn_config(cfg, kind)
         mixer = {"wq": dense(d, a.n_heads * a.d_head, a.qkv_bias),
                  "wk": dense(d, a.n_kv_heads * a.d_head, a.qkv_bias),
@@ -167,14 +183,32 @@ def _layer_shapes(cfg: ArchConfig, kind: str, ffn_kind: str) -> dict:
         if a.qk_norm:
             mixer["q_norm"] = ((a.d_head,), "ones")
             mixer["k_norm"] = ((a.d_head,), "ones")
+    else:
+        raise ValueError(kind)
     layer = {"mixer_norm": {"scale": ((d,), "ones")}, "mixer": mixer}
+
+    def swiglu(width):
+        return {"wi": dense(d, width), "wg": dense(d, width),
+                "wo": dense(width, d)}
+
     if ffn_kind == "none":
         return layer
-    if ffn_kind == "gelu":
+    if ffn_kind == "moe":
+        m = moe_config(cfg)
+        e, f = m.n_experts, m.d_expert
+        ffn = {"router": dense(d, e),      # fp32 in the reference
+               "wi": ((e, d, f), "normal"), "wg": ((e, d, f), "normal"),
+               "wo": ((e, f, d), "normal")}
+        if m.n_shared_experts:
+            ffn["shared"] = swiglu(m.n_shared_experts * f)
+    elif ffn_kind == "dense":  # the first_k_dense prefix of a MoE arch
+        ffn = swiglu(cfg.dense_d_ff or cfg.d_ff)
+    elif ffn_kind == "gelu":
         ffn = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d)}
-    else:  # swiglu | geglu share the layout
-        ffn = {"wi": dense(d, cfg.d_ff), "wg": dense(d, cfg.d_ff),
-               "wo": dense(cfg.d_ff, d)}
+    elif ffn_kind in ("swiglu", "geglu"):  # they share the layout
+        ffn = swiglu(cfg.d_ff)
+    else:
+        raise ValueError(ffn_kind)
     return {**layer, "ffn_norm": {"scale": ((d,), "ones")}, "ffn": ffn}
 
 
@@ -226,7 +260,6 @@ def param_shapes(cfg: ArchConfig) -> dict:
     """The reference's parameter tree for ``cfg`` as (shape, init) leaves
     (see ``_layer_shapes``), ``groups`` leaves stacked over repeats: the
     layout of ``init_params_numpy``, without drawing a weight."""
-    check_supported(cfg)
     prefix, reps, suffix, kinds = _layer_plan(cfg)
     period = len(cfg.block_pattern)
     d, v = cfg.d_model, cfg.vocab_size
@@ -288,7 +321,6 @@ class DecoderLM(ParamTree):
     the reference's layer order). ``forward`` is :func:`forward`."""
 
     def __init__(self, cfg: ArchConfig, tree: dict):
-        check_supported(cfg)
         super().__init__(tree)
         self.cfg = cfg
 
@@ -297,21 +329,30 @@ class DecoderLM(ParamTree):
                        positions=positions)
 
 
+def bf16_leaf(path) -> bool:
+    """Whether the leaf at ``path`` (its names from the root) is cast to
+    bf16 at load: ``_BF16_LEAVES`` but for those under ``_FP32_DENSE``."""
+    return path[-1] in _BF16_LEAVES and not set(path[:-1]) & set(_FP32_DENSE)
+
+
 def _leaf_tensor(arr, device, bf16: bool) -> torch.Tensor:
-    t = torch.tensor(np.asarray(arr), dtype=torch.float32)
-    if bf16:
-        t = t.to(torch.bfloat16)
-    return t.to(device)
+    """A numpy leaf as a new tensor on ``device``, in bf16 or fp32 (one
+    copy: the conversion and the move together)."""
+    arr = np.ascontiguousarray(arr, dtype=np.float32)
+    if not arr.flags.writeable:  # a read-only view (e.g. of a JAX array)
+        arr = arr.copy()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return torch.from_numpy(arr).to(device=device, dtype=dtype, copy=True)
 
 
-def _convert(tree: dict, device, index=None, fp32: bool = False) -> dict:
-    """numpy subtree -> tensors on ``device``; ``index`` takes one repeat
-    of stacked group leaves; ``fp32`` keeps the subtree's matmul leaves
-    fp32 (under ``_FP32_DENSE``)."""
-    return {name: (_convert(v, device, index, fp32 or name in _FP32_DENSE)
+def _convert(tree: dict, device, index=None, path=()) -> dict:
+    """numpy subtree at ``path`` -> tensors on ``device``, bf16 where
+    :func:`bf16_leaf` says; ``index`` takes one repeat of stacked group
+    leaves."""
+    return {name: (_convert(v, device, index, path + (name,))
                    if isinstance(v, dict) else
                    _leaf_tensor(v if index is None else v[index], device,
-                                name in _BF16_LEAVES and not fp32))
+                                bf16_leaf(path + (name,))))
             for name, v in tree.items()}
 
 
@@ -321,7 +362,6 @@ def params_from_reference(tree: dict, cfg: ArchConfig,
     leaves, as ``lm.init_params`` gives it after ``np.asarray``) as the
     port's :class:`DecoderLM` on ``device`` (default ``"cuda"``; raises
     without a card)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     prefix, reps, suffix, _ = _layer_plan(cfg)
     period = len(cfg.block_pattern)
@@ -363,16 +403,21 @@ def _layer_kinds(cfg: ArchConfig, li: int):
 
 
 def _ffn_apply(p, x, cfg: ArchConfig, ffn_kind: str):
+    """-> (x + the FFN's output, the layer's MoE aux loss or None)."""
     if ffn_kind == "none":
-        return x
+        return x, None
     h = L.rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
-    if ffn_kind == "gelu":
+    aux = None
+    if ffn_kind == "moe":
+        h, metrics = moe_lib.moe_forward(p["ffn"], h, moe_config(cfg))
+        aux = metrics["moe_aux_total"]
+    elif ffn_kind == "gelu":
         h = L.gelu_mlp(p["ffn"], h)
     elif ffn_kind == "geglu":
         h = L.geglu(p["ffn"], h)
-    else:
+    else:  # swiglu, and the dense prefix of a MoE arch
         h = L.swiglu(p["ffn"], h)
-    return x + h
+    return x + h, aux
 
 
 def _layer_forward(p, x, positions, cfg: ArchConfig, kind: str,
@@ -382,6 +427,8 @@ def _layer_forward(p, x, positions, cfg: ArchConfig, kind: str,
         h = ssm_lib.mamba2_forward(p["mixer"], h, ssm_config(cfg))
     elif kind == "rglru":
         h = ssm_lib.rglru_block_forward(p["mixer"], h, rglru_config(cfg))
+    elif kind == "mla":
+        h = attn.mla_forward(p["mixer"], h, positions, attn_config(cfg, kind))
     else:
         h = attn.gqa_forward(p["mixer"], h, positions, attn_config(cfg, kind))
     return _ffn_apply(p, x + h, cfg, ffn_kind)
@@ -395,8 +442,13 @@ def _layer_cache_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     if kind == "rglru":
         return ssm_lib.rglru_init_state(batch, rglru_config(cfg),
                                         device=device)
-    return attn.gqa_init_cache(batch, max_len, attn_config(cfg, kind), dtype,
-                               device)
+    if kind == "mla":
+        return attn.mla_init_cache(batch, max_len, attn_config(cfg, kind),
+                                   dtype, device)
+    if kind in ("attn", "local_attn"):
+        return attn.gqa_init_cache(batch, max_len, attn_config(cfg, kind),
+                                   dtype, device)
+    raise ValueError(kind)
 
 
 def _layer_prefill(p, x, positions, cfg: ArchConfig, kind: str,
@@ -409,10 +461,13 @@ def _layer_prefill(p, x, positions, cfg: ArchConfig, kind: str,
         h, cache = ssm_lib.rglru_block_forward(p["mixer"], h,
                                                rglru_config(cfg),
                                                return_state=True)
+    elif kind == "mla":
+        h, cache = attn.mla_prefill_cache(p["mixer"], h, positions,
+                                          attn_config(cfg, kind), max_len)
     else:
         h, cache = attn.gqa_prefill_cache(p["mixer"], h, positions,
                                           attn_config(cfg, kind), max_len)
-    return _ffn_apply(p, x + h, cfg, ffn_kind), cache
+    return _ffn_apply(p, x + h, cfg, ffn_kind)[0], cache
 
 
 def _layer_decode(p, x, pos: int, positions, cache, cfg: ArchConfig,
@@ -425,10 +480,13 @@ def _layer_decode(p, x, pos: int, positions, cache, cfg: ArchConfig,
         h, cache = ssm_lib.rglru_block_forward(p["mixer"], h,
                                                rglru_config(cfg), state=cache,
                                                return_state=True)
+    elif kind == "mla":
+        h, cache = attn.mla_decode_step(p["mixer"], h, pos, cache,
+                                        attn_config(cfg, kind), positions)
     else:
         h, cache = attn.gqa_decode_step(p["mixer"], h, pos, cache,
                                         attn_config(cfg, kind), positions)
-    return _ffn_apply(p, x + h, cfg, ffn_kind), cache
+    return _ffn_apply(p, x + h, cfg, ffn_kind)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -459,17 +517,19 @@ def _head(params, cfg: ArchConfig, x):
 @torch.inference_mode()
 def forward(params, cfg: ArchConfig, tokens=None, embeds=None,
             positions=None):
-    """-> (logits (B,S,V) fp32, aux scalar). aux is the MoE auxiliary loss
-    in the reference; 0 for the kinds ported here."""
-    check_supported(cfg)
+    """-> (logits (B,S,V) fp32, aux scalar fp32): aux sums the MoE layers'
+    ``moe_aux_total`` in layer order (0 for an arch without MoE layers)."""
     x = _embed_in(params, cfg, tokens, embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+    aux = torch.zeros((), device=x.device)
     for li in range(cfg.n_layers):
-        x = _layer_forward(params["layers"][str(li)], x, positions, cfg,
-                           *_layer_kinds(cfg, li))
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+        x, a = _layer_forward(params["layers"][str(li)], x, positions, cfg,
+                              *_layer_kinds(cfg, li))
+        if a is not None:
+            aux = aux + a
+    return _head(params, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -478,9 +538,9 @@ def forward(params, cfg: ArchConfig, tokens=None, embeds=None,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda") -> list:
     """One empty decode state a layer, in layer order: a KV cache (in
-    ``dtype``) for an attention layer, fp32 zero states for an SSM layer
-    (``mamba2_init_state`` / ``rglru_init_state``)."""
-    check_supported(cfg)
+    ``dtype``) for an attention layer, MLA's latent cache (``c``,
+    ``k_rope``), fp32 zero states for an SSM layer (``mamba2_init_state`` /
+    ``rglru_init_state``)."""
     dev = resolve_device(device)
     return [_layer_cache_init(cfg, cfg.layer_kinds[li], batch, max_len,
                               dtype, dev)
@@ -492,7 +552,6 @@ def prefill(params, cfg: ArchConfig, tokens=None, embeds=None,
             max_len: int | None = None):
     """Run the prompt; -> (last-position logits (B,V), decode states at len
     S, one a layer)."""
-    check_supported(cfg)
     x = _embed_in(params, cfg, tokens, embeds)
     s = x.shape[1]
     max_len = max_len or s
@@ -510,8 +569,8 @@ def decode_step(params, cfg: ArchConfig, pos: int, cache: list, token=None,
                 embed=None):
     """One token for the whole batch at absolute position ``pos``.
 
-    token: (B,) int or embed: (B, D). Writes each attention layer's KV
-    cache in place and replaces each SSM layer's state tuple in ``cache``;
+    token: (B,) int or embed: (B, D). Writes each attention layer's cache
+    in place and replaces each SSM layer's state tuple in ``cache``;
     -> (logits (B,V), cache)."""
     if cfg.embed_inputs:
         x = L.embed(params["embed"], token[:, None])

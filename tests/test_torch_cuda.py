@@ -858,3 +858,112 @@ def test_linear_scan_on_card_matches_sequential(cuda_device):
     seq = ssm.linear_scan_naive(a.to(cuda_device), b.to(cuda_device))
     assert (gb - seq).abs().max().item() <= (32 * 2.0 ** -23
                                              * seq.abs().max().item())
+
+
+# -- slice 10: MLA and the MoE FFN --------------------------------------------
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b",
+                                  "qwen3-moe-235b-a22b"])
+def test_mla_moe_smoke_lm_on_card_matches_cpu(cuda_device, arch):
+    """The arch's smoke config on the card against the same weights on the
+    CPU: forward (logits within 1e-2, the argmax equal where the CPU's
+    top-2 gap exceeds it; the MoE aux within 2e-4 relative), prefill and
+    four decode steps (MLA's absorbed decode on the latent cache), each
+    cache in the CPU's layout and dtypes; the card's greedy tokens are its
+    own forward's teacher-forced argmax except on near-ties within 1e-2."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+    cfg = get_smoke(arch)
+    tree = lm.init_params_numpy(cfg, seed=0)
+    card = lm.params_from_reference(tree, cfg, cuda_device)
+    cpu = lm.params_from_reference(tree, cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 44), dtype=np.int32))
+
+    def hold(got, want, tol=1e-2):
+        got = got.cpu()
+        assert (got - want).abs().max().item() <= tol
+        top2 = want.topk(2, dim=-1).values
+        decided = top2[..., 0] - top2[..., 1] > tol
+        assert torch.equal(got.argmax(-1)[decided], want.argmax(-1)[decided])
+
+    got, got_aux = lm.forward(card, cfg, tokens=toks.to(cuda_device))
+    want, want_aux = lm.forward(cpu, cfg, tokens=toks)
+    hold(got, want)
+    assert abs(got_aux.item() - want_aux.item()) <= 2e-4 * want_aux.item()
+    got, gc = lm.prefill(card, cfg, tokens=toks[:, :40].to(cuda_device),
+                         max_len=44)
+    want, wc = lm.prefill(cpu, cfg, tokens=toks[:, :40], max_len=44)
+    hold(got, want)
+    for i in range(40, 44):
+        got, gc = lm.decode_step(card, cfg, i, gc,
+                                 token=toks[:, i].to(cuda_device))
+        want, wc = lm.decode_step(cpu, cfg, i, wc, token=toks[:, i])
+        hold(got, want)
+    for g, w in zip(gc, wc):
+        assert sorted(g) == sorted(w)
+        assert [(g[k].shape, g[k].dtype) for k in sorted(g)] == [
+            (w[k].shape, w[k].dtype) for k in sorted(w)]
+        assert torch.equal(g["pos"].cpu(), w["pos"])
+    out = Engine(cfg, card, max_len=40, device=cuda_device).generate(
+        toks[:, :24], 16)
+    logits, _ = lm.forward(card, cfg, tokens=torch.cat(
+        [toks[:, :24].to(cuda_device), out], dim=1))
+    tf = logits[:, 23:-1]
+    top2 = tf.topk(2, dim=-1).values
+    off = tf.argmax(-1).to(torch.int32) != out
+    assert bool(((top2[..., 0] - top2[..., 1])[off] <= 1e-2).all())
+
+
+def test_moe_routing_and_combine_on_card_give_cpu_bits(cuda_device):
+    """Tied router probabilities take the lower expert first on the card
+    (a stable sort), the capacity drops the same pairs, and the combine
+    gives the CPU's bits (a fixed order of bf16 adds, no atomics)."""
+    from repro_torch.models import moe
+    cfg = moe.MoEConfig(d_model=64, n_experts=16, top_k=4, d_expert=32,
+                        capacity_factor=0.75)
+    rng = np.random.default_rng(4)
+    logits = torch.from_numpy(rng.integers(0, 3, (512, 16)).astype(
+        np.float32))
+    w_card, i_card, _ = moe.route(logits.to(cuda_device), cfg)
+    w_cpu, i_cpu, _ = moe.route(logits, cfg)
+    assert torch.equal(i_card.cpu(), i_cpu)
+    c = moe.capacity(512, cfg)
+    got = moe.dispatch(i_card, c, cfg.n_experts)
+    want = moe.dispatch(i_cpu, c, cfg.n_experts)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert not bool(want[-1].all())
+    scale = torch.from_numpy(10.0 ** rng.integers(-3, 3, (512 * 4, 1)))
+    rows = (torch.from_numpy(rng.standard_normal((512 * 4, 64))) * scale
+            ).bfloat16()
+    _, st_tok, se, _, _ = want
+    out_cpu = moe.combine(rows, st_tok, se, 512, 16)
+    out_card = moe.combine(rows.to(cuda_device), st_tok.to(cuda_device),
+                           se.to(cuda_device), 512, 16)
+    assert torch.equal(out_card.cpu(), out_cpu)
+
+
+def test_moe_router_and_mla_decode_refuse_tf32_on_card(cuda_device):
+    """The MoE router product and MLA's absorbed decode are fp32 products:
+    on the card they raise while TF32 is on, rather than rank experts or
+    scores on a 10-bit mantissa."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for arch in ("deepseek-moe-16b", "minicpm3-4b"):
+            cfg = get_smoke(arch)
+            model = lm.init_params(cfg, 0, device=cuda_device)
+            toks = torch.zeros((1, 4), dtype=torch.int32,
+                               device=cuda_device)
+            with pytest.raises(RuntimeError, match="IEEE fp32"):
+                if arch == "minicpm3-4b":
+                    _, cache = lm.prefill(model, cfg, tokens=toks,
+                                          max_len=8)
+                    lm.decode_step(model, cfg, 4, cache, token=toks[:, 0])
+                else:
+                    lm.forward(model, cfg, tokens=toks)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

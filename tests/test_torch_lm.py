@@ -1,8 +1,11 @@
-"""Slices 8 and 9 of the port against the reference, on the CPU at smoke
+"""Slices 8-10 of the port against the reference, on the CPU at smoke
 sizes: the arch configs, the primitive layers, grouped-query attention
 with its KV caches, and the decoder LM's forward, prefill and decode, for
-the dense archs and the recurrent ones (mamba2-780m's SSD layers,
-recurrentgemma-9b's RG-LRU / local-attention pattern). Both packages run
+the dense archs, the recurrent ones (mamba2-780m's SSD layers,
+recurrentgemma-9b's RG-LRU / local-attention pattern) and the MLA and MoE
+ones (minicpm3-4b's latent attention; deepseek-moe-16b's dense first
+layer, routed and shared experts; qwen3-moe-235b-a22b's renormalised
+top-8 with QK-norm). Both packages run
 in this process on the same numpy inputs and weights (the reference's
 parameter tree as numpy arrays, through ``params_from_reference``).
 
@@ -15,7 +18,10 @@ attention outputs within one bf16 ulp of their largest magnitude and KV
 caches within two (two roundings of a bf16 product can differ by an
 ulp); logits within 1e-2, the
 reference's own decode tolerance (``tests/test_arch_smoke.py``), with the
-argmax equal wherever the reference's top-2 gap exceeds it. The recurrent
+argmax equal wherever the reference's top-2 gap exceeds it, and the MoE
+archs' ``aux`` (the summed router losses) within ``AUX_RTOL`` of the
+reference's (measured <= 8.6e-5: the routers read activations that carry
+the layers' bf16 rounding splits). The recurrent
 archs' logits and SSM decode states (in the reference's dtypes) are held
 to ``SSM_ULPS`` bf16 ulps of the reference's largest magnitude instead
 (measured <= 1.9 for the logits, <= 2.1 for mamba2's deepest SSD state):
@@ -60,9 +66,10 @@ DENSE_ARCHS = ("qwen2-0.5b", "granite-34b", "llama3-405b", "chameleon-34b")
 # recurrentgemma: rglru, rglru, local_attn (S=40 wraps the 16-slot ring)
 SSM_ARCHS = ("mamba2-780m", "recurrentgemma-9b")
 SSM_ULPS = 3
-# unported arch -> the kind the port names
-UNPORTED = {"minicpm3-4b": "'mla'", "deepseek-moe-16b": "'moe'",
-            "qwen3-moe-235b-a22b": "'moe'"}
+# minicpm3: mla; deepseek: first_k_dense + shared experts; qwen3: top-8
+# renormalised, GQA with QK-norm
+MLA_MOE_ARCHS = ("minicpm3-4b", "deepseek-moe-16b", "qwen3-moe-235b-a22b")
+AUX_RTOL = 2e-4
 
 
 FAST_COMPILE = {"xla_backend_optimization_level": 0}
@@ -249,8 +256,9 @@ def _attn_params(cfg, seed):
 
 
 def _hold_cache(jc, tc, ulps=2):
-    """Positions equal; K/V within ``ulps`` bf16 ulps of their largest
-    magnitude (int8 ones: the dequantised values decode reads)."""
+    """Positions equal; K/V (MLA: the latent ``c`` and ``k_rope``) within
+    ``ulps`` bf16 ulps of their largest magnitude (int8 ones: the
+    dequantised values decode reads)."""
     assert set(jc) == set(tc)
     assert np.array_equal(np.asarray(jc["pos"]), tc["pos"].numpy())
     if "k_scale" in jc:  # int8: compare what decode reads back
@@ -259,7 +267,8 @@ def _hold_cache(jc, tc, ulps=2):
             got = tattn._kv_dequantize(tc[n], tc[f"{n}_scale"])
             assert _ulps(ref, got, floor=0.0) <= ulps, n
         return
-    for n in ("k", "v"):
+    for n in set(jc) - {"pos"}:
+        assert tc[n].dtype == torch.bfloat16
         assert _ulps(jc[n], tc[n], floor=0.0) <= ulps, (
             n, _ulps(jc[n], tc[n], floor=0.0))
 
@@ -331,7 +340,7 @@ def _reference_lm(params, x, s, cfg, key):
     """The reference's forward over all S + steps positions, prefill of the
     first S and each decode step, in one compiled program."""
     one = "token" if key == "tokens" else "embed"
-    fwd, _ = jlm.forward(params, cfg, **{key: x})
+    fwd, aux = jlm.forward(params, cfg, **{key: x})
     pre, cache = jlm.prefill(params, cfg, max_len=LM_MAX_LEN,
                              **{key: x[:, :s]})
 
@@ -342,10 +351,11 @@ def _reference_lm(params, x, s, cfg, key):
         return cache, logits
 
     cache, steps = jax.lax.scan(step, cache, jnp.arange(LM_STEPS))
-    return fwd, pre, steps.swapaxes(0, 1), cache
+    return fwd, pre, steps.swapaxes(0, 1), cache, aux
 
 
-@pytest.fixture(scope="module", params=DENSE_ARCHS + SSM_ARCHS)
+@pytest.fixture(scope="module", params=DENSE_ARCHS + SSM_ARCHS
+                + MLA_MOE_ARCHS)
 def arch(request):
     """The port's model and outputs beside the reference's, for one smoke
     config on the same numpy weights and inputs."""
@@ -366,10 +376,13 @@ def arch(request):
 
 def _bf16_leaf(key):
     """Whether ``params_from_reference`` casts the buffer at ``key`` to
-    bf16: matmul kernels, biases and tables, but for the RG-LRU gates'."""
+    bf16: matmul kernels, biases, tables and the MoE experts' raw arrays,
+    but for the RG-LRU gates', the MoE router's and MLA's ``wuk`` /
+    ``wuv`` (fp32 in the reference's products)."""
     parts = key.split(".")
-    return parts[-1] in ("kernel", "bias", "table") and not (
-        {"w_a", "w_i"} & set(parts))
+    experts = parts[-2] == "ffn" and parts[-1] in ("wi", "wg", "wo")
+    return (parts[-1] in ("kernel", "bias", "table") or experts) and not (
+        {"w_a", "w_i", "router", "wuk", "wuv"} & set(parts))
 
 
 def test_model_layout_and_dtypes(arch):
@@ -391,7 +404,10 @@ def test_model_layout_and_dtypes(arch):
 
 def test_forward_matches_reference(arch):
     got, aux = arch["model"](**{arch["key"]: arch["x"]})
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    ref_aux = float(arch["ref"][4])
+    assert got.dtype == torch.float32 and aux.dtype == torch.float32
+    assert (ref_aux > 0) == (arch["tcfg"].ffn == "moe")
+    assert abs(float(aux) - ref_aux) <= AUX_RTOL * ref_aux
     _hold_logits(arch["ref"][0], got, arch["tol"])
     if arch["name"] == "llama3-405b":  # S + steps = 68: no q_block split
         s, qb = arch["s"], arch["tcfg"].q_block
@@ -403,7 +419,7 @@ def test_forward_matches_reference(arch):
 def test_prefill_and_decode_match_reference(arch):
     tcfg, model, s, key, x = (arch[k] for k in ("tcfg", "model", "s", "key",
                                                 "x"))
-    _, ref_pre, ref_steps, jc = arch["ref"]
+    _, ref_pre, ref_steps, jc, _ = arch["ref"]
     got, tc = tlm.prefill(model, tcfg, max_len=LM_MAX_LEN,
                           **{key: x[:, :s]})
     _hold_logits(ref_pre, got, arch["tol"])
@@ -416,7 +432,8 @@ def test_prefill_and_decode_match_reference(arch):
         _hold_layout(_reference_layer(ref_empty, tcfg, li), e)
         _hold_layout(_reference_layer(jc, tcfg, li), c)
         if isinstance(e, dict):
-            assert (e["pos"] == -1).all() and not e["k"].any()
+            assert (e["pos"] == -1).all()
+            assert not any(t.any() for n, t in e.items() if n != "pos")
         else:
             assert not any(t.any() for t in e)
     one = "token" if key == "tokens" else "embed"
@@ -509,18 +526,6 @@ def test_soft_cap_and_untied_head_match_reference():
     _hold_logits(ref, got)
 
 
-@pytest.mark.parametrize("arch_name", sorted(UNPORTED))
-def test_unported_kinds_raise_naming_their_item(arch_name):
-    cfg = tconfigs.get_smoke(arch_name)
-    with pytest.raises(NotImplementedError, match=r"item 8\.2") as err:
-        tlm.init_params_numpy(cfg)
-    assert UNPORTED[arch_name] in str(err.value)
-    with pytest.raises(NotImplementedError, match=r"item 8\.2"):
-        tlm.params_from_reference({}, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 8\.2"):
-        tlm.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_full_width_qwen2_layout():
     """qwen2-0.5b at full width, counted from the layout alone (no
     weights): 494.03 M parameters in the reference's tree."""
@@ -537,18 +542,12 @@ def test_full_width_qwen2_layout():
     assert total == sum(x.size for x in jax.tree_util.tree_leaves(abstract))
 
 
-@pytest.mark.parametrize("name,n_layers,millions", [
-    ("mamba2-780m", 48, 780.15), ("recurrentgemma-9b", 38, 9396.41),
-    ("recurrentgemma-9b", 5, 2174.92)])
-def test_full_width_recurrent_layouts(name, n_layers, millions):
-    """The recurrent archs at full width, counted from ``param_shapes``
-    alone (no weights): ``check_supported`` accepts them, and the layout is
-    the reference's leaf for leaf, at full depth and at the five-layer cut
-    (one rglru, rglru, local_attn period and the two-layer rglru suffix)
-    that ``chip_smoke.py`` loads."""
+def _hold_full_width_layout(name, n_layers, millions):
+    """``param_shapes`` of the arch at full width and ``n_layers`` against
+    the reference's ``init_abstract`` leaf for leaf (no weights), and its
+    count in millions."""
     tcfg = dataclasses.replace(tconfigs.get_config(name), n_layers=n_layers)
     jcfg = dataclasses.replace(jconfigs.get_config(name), n_layers=n_layers)
-    tlm.check_supported(tcfg)
     is_leaf = lambda v: isinstance(v, tuple) and len(v) == 2 and isinstance(
         v[1], str)
     shapes, tree = jax.tree_util.tree_flatten(tlm.param_shapes(tcfg),
@@ -560,3 +559,27 @@ def test_full_width_recurrent_layouts(name, n_layers, millions):
     assert [s for s, _ in shapes] == [a.shape for a in abstract]
     total = sum(int(np.prod(s)) for s, _ in shapes)
     assert round(total / 1e6, 2) == millions
+
+
+@pytest.mark.parametrize("name,n_layers,millions", [
+    ("mamba2-780m", 48, 780.15), ("recurrentgemma-9b", 38, 9396.41),
+    ("recurrentgemma-9b", 5, 2174.92)])
+def test_full_width_recurrent_layouts(name, n_layers, millions):
+    """The recurrent archs at full width, counted from ``param_shapes``
+    alone (no weights): the layout is the reference's leaf for leaf, at
+    full depth and at the five-layer cut (one rglru, rglru, local_attn
+    period and the two-layer rglru suffix) that ``chip_smoke.py`` loads."""
+    _hold_full_width_layout(name, n_layers, millions)
+
+
+@pytest.mark.parametrize("name,n_layers,millions", [
+    ("minicpm3-4b", 62, 4261.90), ("deepseek-moe-16b", 4, 2267.04),
+    ("deepseek-moe-16b", 28, 16375.73), ("qwen3-moe-235b-a22b", 2, 6220.17),
+    ("qwen3-moe-235b-a22b", 94, 235093.63)])
+def test_full_width_mla_moe_layouts(name, n_layers, millions):
+    """minicpm3-4b (MLA) at full width and depth, and the MoE archs at full
+    width at the depths ``chip_smoke.py`` loads (deepseek-moe-16b's dense
+    first layer and three MoE layers; two qwen3 layers) and at full depth,
+    counted from ``param_shapes`` alone: the reference's layout leaf for
+    leaf."""
+    _hold_full_width_layout(name, n_layers, millions)
