@@ -79,7 +79,7 @@ that fails raises. Phases:
      normals' cost at B=8. Each plane run is logged beside the
      point-to-point run of the same path (phases 2, 3 and 5).
   8. Streaming scan-to-map odometry: ``OdometryPipeline(device="cuda")``
-     on seq 0 frames 0-14 (default ``SceneConfig``, ~32.5k points a scan)
+     on seq 0 frames 0-10 (default ``SceneConfig``, ~32.5k points a scan)
      with ``OdometryConfig(scan_budget=16384)``, held to JAX reference runs
      of the same streams (constants below, from CPU runs of ``src/repro``):
      (a) the fp32 stream twice (the same bits), positions within 0.05 m of
@@ -201,8 +201,10 @@ that fails raises. Phases:
      busy ms and idle share beside its byte bound (the weights, the
      recurrent states read and written, the KV ring, the logits); peak
      memory; then the launcher at its defaults (``--arch``, the full
-     config: all 38 of recurrentgemma-9b's layers, 9,396.41 M parameters),
-     which must print its tok/s line (mamba2: the engine's tokens). No port
+     config cut to keep the script in its time limit,
+     ``P13_LAUNCH_LAYERS``: mamba2-780m to 8 layers, recurrentgemma-9b to
+     the phase's 5, whose tokens must be the engine's on the same
+     weights), which must print its tok/s line. No port
      kernel runs on this path (the reference's SSD and RG-LRU are XLA ops):
      every count must stay 0.
  14. MLA and the single-device MoE FFN (slice 10, ``models/attention.py``
@@ -228,20 +230,53 @@ that fails raises. Phases:
      device kernels, busy ms and idle share beside its byte bound (every
      weight read once: the MoE buffer runs every expert; the caches; the
      logits); peak memory; then the launcher at its defaults for
-     minicpm3-4b (the engine's tokens) and with ``--smoke`` for the MoE
-     archs (deepseek-moe-16b's 28 layers, 16,375.73 M parameters, served
-     in 133 s, most of it numpy init: PERF.md). No port kernel runs on
-     this path (the reference's MLA and MoE are XLA ops): every count must
-     stay 0.
+     minicpm3-4b and deepseek-moe-16b, their configs cut to keep the script
+     in its time limit (``P14_LAUNCH_LAYERS``: minicpm3-4b to 8 layers,
+     deepseek-moe-16b to the phase's 4, whose tokens must be the engine's;
+     all 28 took 113-126 s, most of it numpy init), and with ``--smoke``
+     for qwen3-moe. No port kernel
+     runs on this path (the reference's MLA and MoE are XLA ops): every
+     count must stay 0.
+
+ 15. The LM training path (slice 11: ``models/lm.py``'s trainable model
+     and ``loss_fn``, ``optim/``, ``train/``, ``launch/train.py``) at
+     qwen2-0.5b's full width and depth, 494.03 M fp32 ``nn.Parameter``s
+     from ``lm.init_params_numpy(cfg, 0)``: (a) the trainable model's
+     logits the serving model's bits on 2 x 64 seeded tokens; three
+     ``make_train_step`` steps (AdamW, ``cosine_schedule(3e-4, 20, 21)``,
+     remat none, the same batch) and two Adafactor steps held to a pasted
+     JAX CPU run of the reference on the same weights (each step's loss,
+     step 1's gradient norm, the parameters at 168 coordinates) within
+     bars fixed before the first card run; the bytes of the parameters,
+     gradients and AdamW state, ``max_memory_allocated``; the step's
+     device ms (CUDA events), tokens/s, device kernels, busy ms and idle
+     share (profiler) at 2 x 64 and 8 x 128 beside its bound (the
+     products at the bf16 peak plus AdamW's bytes at HBM peak); (b) remat
+     ``full`` and ``dots`` give ``none``'s bits, each mode's peak memory;
+     ``accum_steps=2`` on 4 x 64 against one batch; (c) a second run of
+     the three steps the same bits, and the state saved after step 2
+     (``checkpoint.save``, ~5.9 GB under the git-ignored ``build/``,
+     removed after) and restored onto ``train_step.abstract_state``: its
+     step 3 the uninterrupted step 3's bits; (d) mamba2-780m,
+     recurrentgemma-9b, minicpm3-4b, deepseek-moe-16b and qwen3-moe (also
+     under Adafactor) at smoke size: 3 steps on the card against the
+     port's CPU path, two card runs the same bits; (e) the launcher
+     ``repro_torch.launch.train`` at its defaults (qwen2-0.5b at full
+     width, 100 steps of 8 x 128): its loss falls and it prints its lines;
+     ``--smoke`` stopped at step 6 and resumed to 12: the uninterrupted
+     run's bits; the example ``repro_torch.examples.train_lm`` prints
+     ``OK``. No port kernel runs on this path (the reference trains
+     through XLA's autodiff of XLA ops): every count must stay 0.
 
 Every kernel count is set to 0 just before each main-path run (phases 2, 3,
-5, 7, 8, 9, 10, 11, 12, 13 and 14) and read just after. The last lines are
+5, 7, 8, 9, 10, 11, 12, 13, 14 and 15) and read just after. The last lines are
 the ``{"kernels": [...]}`` report, the card line from ``nvidia-smi`` and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import statistics
@@ -253,6 +288,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit).
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12   # dense, tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 # The search's work: 4 fp32 FMA per (query, target) pair (the four-term
 # sum; rows 5..7 are 0) and one add per query (|p'|², as row 4 of the target
@@ -1428,10 +1464,15 @@ def phase7(torch, np, scenes):
 
 
 # Slice 4: streaming scan-to-map odometry. The stream is seq 0, frames
-# 0-14, default SceneConfig (~32.5k points a scan), through
+# 0-10, default SceneConfig (~32.5k points a scan), through
 # OdometryConfig(scan_budget=16384): the default budget of 8192 would drop
 # about a third of every scan's occupied voxels from the +x end.
-ODOM_FRAMES = 15
+# The reference runs below cover frames 0-14; the stream is cut to 0-10
+# (the clean frames 0-1, the burst 5-8, run (e)'s frame 10; the run is
+# causal, so its first 11 frames are an 11-frame run's): five runs of
+# 2.6-3.6 s frames are the script's longest phase, and the whole script
+# took 1154-1249 s of its 1200 s limit on slower cards with phase 15
+ODOM_FRAMES = 11
 ODOM_SCAN_BUDGET = 16384
 ODOM_BAND_M = 0.05      # port vs the JAX reference, and runs (b)-(c) vs (a)
 FAIL_ERR_M = 1.0        # benchmarks/robustness.py: a failed frame
@@ -1840,11 +1881,13 @@ def phase8(torch, np):
           "phase8 a: two runs of the clean stream differ")
     row_a.update(bit_identical_rerun=True, split_ms=row_a2["split_ms"])
     hold_to_reference("a_fp32", np, poses_a, diags_a, row_a,
-                      ODOM_REF_POSITIONS, ODOM_REF_VERDICTS)
+                      ODOM_REF_POSITIONS[:ODOM_FRAMES],
+                      ODOM_REF_VERDICTS[:ODOM_FRAMES])
     check(row_a["max_err_m"] <= FAIL_ERR_M, f"phase8 a: a frame is "
           f"{row_a['max_err_m']} m off the ground truth")
     log(f"phase8 a: bit-identical rerun; frame split of the rerun (median "
-        f"of frames 3-14, ms, a sync around each stage): " + ", ".join(
+        f"of frames 3-{ODOM_FRAMES - 1}, ms, a sync around each stage): "
+        + ", ".join(
             f"{k} {v:.1f}" for k, v in row_a2["split_ms"].items()))
 
     # (b) fp16 submap storage: held to the reference's fp16 run, which
@@ -1854,7 +1897,8 @@ def phase8(torch, np):
     _, poses_b, diags_b, row_b = drive("b_fp16", cfg._replace(
         submap=cfg.submap._replace(storage="fp16")), scans)
     hold_to_reference("b_fp16", np, poses_b, diags_b, row_b,
-                      ODOM_REF_FP16_POSITIONS, ODOM_REF_FP16_VERDICTS)
+                      ODOM_REF_FP16_POSITIONS[:ODOM_FRAMES],
+                      ODOM_REF_FP16_VERDICTS[:ODOM_FRAMES])
     _, poses_c, _, row_c = drive("c_fused", cfg._replace(
         params=cfg.params._replace(fused=True)), scans,
         capture=("fused_moment_sweep",))
@@ -1888,15 +1932,16 @@ def phase8(torch, np):
     row_d["burst_frames_unlike_a"] = acted
     check(len(acted) > 0, "phase8 d: on every burst frame the cascade "
           "settled and reasoned as on the clean stream")
-    worse = np.asarray(row_d["err_m"]) - np.asarray(ODOM_REF_BURST_ERR_M)
+    ref_err = ODOM_REF_BURST_ERR_M[:ODOM_FRAMES]
+    worse = np.asarray(row_d["err_m"]) - np.asarray(ref_err)
     row_d["max_err_over_ref_m"] = float(worse.max())
     check(float(worse.max()) <= ODOM_BAND_M, f"phase8 d: per-frame error "
           f"{np.round(row_d['err_m'], 3).tolist()} exceeds the reference's "
-          f"{np.round(ODOM_REF_BURST_ERR_M, 3).tolist()} + {ODOM_BAND_M}")
+          f"{np.round(ref_err, 3).tolist()} + {ODOM_BAND_M}")
     check(row_d["launches"]["nn_search"] > 0,
           "phase8 d: no retry tier launched nn_search")
     log(f"phase8 d: error per frame {np.round(row_d['err_m'], 3).tolist()} "
-        f"m (reference {np.round(ODOM_REF_BURST_ERR_M, 3).tolist()}); tier "
+        f"m (reference {np.round(ref_err, 3).tolist()}); tier "
         f"histogram {row_d['tier_counts']}, health {row_d['health_counts']}; "
         f"burst frames whose tier or attempt reasons differ from run a: "
         f"{acted}")
@@ -3391,7 +3436,7 @@ def phase12(torch, np):
 # local_attn period and the two-layer rglru suffix, the plan of the full
 # 38 = 12 x 3 + 2 (2,174.92 M parameters; the 38 layers' 37.6 GB of fp32
 # numpy weights put the JAX CPU reference run below out of reach; the
-# launcher in (c) serves all 38 on the card). (b) holds the teacher-forced
+# launcher in (c) serves the same 5). (b) holds the teacher-forced
 # logits of 2 x 64 tokens from np.random.default_rng(P13_SEED) to a JAX
 # CPU run of the reference on the same numpy weights, the leaves it casts
 # to bf16 at use handed over as bf16 (the same bits; 25-40 s and up to
@@ -3430,6 +3475,11 @@ def phase12(torch, np):
 P13_ARCHS = ("mamba2-780m", "recurrentgemma-9b")
 P13_SEED = 13
 P13_LAYERS = {"mamba2-780m": 48, "recurrentgemma-9b": 5}
+# the launcher's depth (the whole script's time limit; its full configs
+# took 13-14 s and 39-45 s with their numpy init): recurrentgemma-9b at
+# the phase's 5 layers, so its tokens are held to the engine's;
+# mamba2-780m at 8 of 48
+P13_LAUNCH_LAYERS = {"recurrentgemma-9b": 5, "mamba2-780m": 8}
 P13_PARAMS_M = {"mamba2-780m": 780.15, "recurrentgemma-9b": 2174.92}
 P13_FIXED_V = {"mamba2-780m": (0, 1, 4096, 32768, 50279),
                "recurrentgemma-9b": (0, 1, 4096, 65536, 255999)}
@@ -3577,6 +3627,26 @@ P13_REF = {
             1.0152371, 1.21808, -0.82401145, -0.20898099, -1.1868801,
             -0.16406086, 0.42770535)),
 }
+
+
+@contextlib.contextmanager
+def launch_depth(arch, n_layers=None):
+    """The registry's full config of ``arch`` cut to ``n_layers`` layers
+    while the block runs (the serve launcher builds ``get_config(arch)``),
+    or left whole with ``n_layers`` None; yields the config in force."""
+    import dataclasses
+    import importlib
+
+    from repro_torch.configs import registry
+    module = importlib.import_module(
+        f"repro_torch.configs.{registry._MODULES[arch]}")
+    full = module.CONFIG
+    if n_layers is not None:
+        module.CONFIG = dataclasses.replace(full, n_layers=n_layers)
+    try:
+        yield module.CONFIG
+    finally:
+        module.CONFIG = full
 
 
 def state_bytes(cache):
@@ -3738,9 +3808,12 @@ def phase13(torch, np):
         del model
         torch.cuda.empty_cache()
 
-        # the launcher at its defaults: the full config, all its layers
+        # the launcher at its defaults: the full config, cut to
+        # P13_LAUNCH_LAYERS; held to the engine's tokens at the phase's
+        # depth
         text = io.StringIO()
-        with contextlib.redirect_stdout(text):
+        with launch_depth(arch, P13_LAUNCH_LAYERS.get(arch)) as launch_cfg, \
+                contextlib.redirect_stdout(text):
             launched, wall, launches = counted(
                 torch, lambda: serve_launch.main(["--arch", arch, "--device",
                                                   "cuda:0"]))
@@ -3751,15 +3824,15 @@ def phase13(torch, np):
         check(tuple(launched.shape) == (4, 32) and int(launched.min()) >= 0
               and int(launched.max()) < cfg.vocab_size, f"{tag} launcher: "
               f"bad tokens {tuple(launched.shape)}")
-        if full.n_layers == cfg.n_layers:
+        if launch_cfg.n_layers == cfg.n_layers:
             check(bool(torch.equal(launched, served["b4_p32_g32"])),
                   f"{tag} launcher: its tokens differ from the engine's on "
                   f"the same weights and prompts")
         row["launcher"] = dict(line=lines[0], wall_ms=wall,
-                               layers=full.n_layers)
+                               layers=launch_cfg.n_layers)
         log(f"{tag} launcher (repro_torch.launch.serve --arch {arch}, "
-            f"{full.n_layers} layers): {lines[0].strip()} | {wall:.0f} ms "
-            f"with its weight init")
+            f"{launch_cfg.n_layers} of {full.n_layers} layers): "
+            f"{lines[0].strip()} | {wall:.0f} ms with its weight init")
         del launched
         torch.cuda.empty_cache()
         log(f"{tag}: {time.perf_counter() - t_arch:.1f} s")
@@ -3861,6 +3934,11 @@ P14_DECODE_TOL = {"minicpm3-4b": 0.8, "deepseek-moe-16b": 0.2,
 P14_DECODE_ALL_TOL = {"deepseek-moe-16b": 0.9, "qwen3-moe-235b-a22b": 6.5}
 P14_ROUTE_TIE = 1e-3
 P14_LAUNCH_SMOKE = ("qwen3-moe-235b-a22b",)
+# the launcher's depth (the whole script's time limit: deepseek-moe-16b's
+# 28 layers took 113-126 s and minicpm3-4b's 62 took 28-32 s, most of it
+# numpy init): deepseek-moe-16b at the phase's 4 layers, so its tokens are
+# held to the engine's; minicpm3-4b at 8 of 62
+P14_LAUNCH_LAYERS = {"deepseek-moe-16b": 4, "minicpm3-4b": 8}
 P14_LONG = (2, 1024, 16)   # minicpm3-4b: two q_blocks of 512
 P14_REF = {
     "minicpm3-4b": dict(
@@ -4430,14 +4508,17 @@ def phase14(torch, np):
         gc.collect()
         torch.cuda.empty_cache()
 
-        # the launcher at its defaults: minicpm3-4b and deepseek-moe-16b
-        # at full width and depth (62 and 28 layers; minicpm3-4b's tokens
-        # are the engine's on the same weights); qwen3-moe-235b-a22b with
-        # --smoke (its 94 layers are 470 GB in bf16: no card holds them)
+        # the launcher at its defaults, the config cut to
+        # P14_LAUNCH_LAYERS (deepseek-moe-16b at the phase's 4 layers, held
+        # to the engine's tokens on the same weights; minicpm3-4b at 8);
+        # qwen3-moe-235b-a22b with --smoke (its 94 layers are 470 GB in
+        # bf16: no card holds them)
         smoke = arch in P14_LAUNCH_SMOKE
-        launch_cfg = get_smoke(arch) if smoke else full
         text = io.StringIO()
-        with contextlib.redirect_stdout(text):
+        with launch_depth(arch, P14_LAUNCH_LAYERS.get(arch)) as launch_cfg, \
+                contextlib.redirect_stdout(text):
+            if smoke:
+                launch_cfg = get_smoke(arch)
             launched, wall, launches = counted(
                 torch, lambda: serve_launch.main(
                     ["--arch", arch, "--device", "cuda:0"]
@@ -4466,6 +4547,699 @@ def phase14(torch, np):
     check(sum(totals.values()) == 0, f"phase14: the MLA / MoE LM path "
           f"launched port kernels {totals}")
     log(f"phase14: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# Slice 11: the LM training path at qwen2-0.5b's full width and depth
+# (494.03 M parameters as fp32 nn.Parameters from lm.init_params_numpy(cfg,
+# 0), the reference's masters), on 2 x 64 tokens from
+# np.random.default_rng(P15_SEED) (p15_batch). (a) holds three AdamW steps
+# of make_train_step (cosine_schedule(3e-4, 20, 21), remat "none", the same
+# batch each step) and two Adafactor steps to a JAX CPU run of the
+# reference on the same numpy weights (about 60 s and 14 GB on an 8-core
+# CPU host): each step's loss, step 1's global gradient norm, and the
+# parameters after the last step at 168 coordinates, the 12 largest
+# |step-1 gradient| entries of each of P15_LEAVES (p15_coords):
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu python -c "import jax, numpy as np
+#   from chip_smoke import *; from repro.configs import get_config
+#   from repro.models import lm; from repro.optim import (adamw,
+#       adafactor, clip_by_global_norm, cosine_schedule)
+#   from repro.train.train_step import TrainState, make_train_step
+#   from repro_torch.models.lm import init_params_numpy
+#   cfg = get_config(P15_ARCH); p = init_params_numpy(cfg, 0)
+#   b = p15_batch(np, cfg.vocab_size)
+#   g = jax.jit(jax.grad(lambda p, b: lm.loss_fn(p, cfg, b)[0]))(p, b)
+#   c = p15_coords(np, g); print(float(clip_by_global_norm(g, 1.0)[1]), c)
+#   for opt, n in ((adamw, 3), (adafactor, 2)):
+#       o = opt(cosine_schedule(*P15_LR)); s = TrainState(p, o.init(p))
+#       f = jax.jit(make_train_step(cfg, o, remat='none')); ls = []
+#       for i in range(n): s, m = f(s, b); ls.append(float(m['loss']))
+#       print(ls, [p15_value(np, s.params, k) for k in c])"
+P15_ARCH = "qwen2-0.5b"
+P15_SEED = 15
+P15_B, P15_S = 2, 64
+P15_LR = (3e-4, 20, 21)   # cosine_schedule(peak, warmup, total)
+P15_PARAMS_M = 494.03
+# the reference leaves whose coordinates are held: (path, repeat)
+P15_LEAVES = ((("embed", "table"), None), (("final_norm", "scale"), None)) \
+    + tuple((("groups", "0") + leaf, r) for r in (0, 12, 23)
+            for leaf in (("mixer_norm", "scale"), ("mixer", "wq", "kernel"),
+                         ("mixer", "wv", "bias"), ("ffn", "wg", "kernel")))
+P15_PER_LEAF = 12
+
+
+def p15_batch(np, vocab_size, b=P15_B, s=P15_S, seed=P15_SEED):
+    """The (b, s) inputs and next-token labels of phase 15, as numpy."""
+    toks = np.random.default_rng(seed).integers(0, vocab_size, (b, s + 1),
+                                                dtype=np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _p15_leaf(np, tree, key):
+    path, r = key
+    leaf = tree
+    for k in path:
+        leaf = leaf[k]
+    leaf = np.asarray(leaf)
+    return leaf if r is None else leaf[r]
+
+
+def p15_coords(np, grads, leaves=P15_LEAVES, per_leaf=P15_PER_LEAF):
+    """The held coordinates, ((path, repeat), flat index) each: the
+    ``per_leaf`` largest |gradient| entries of each leaf of the reference
+    tree ``grads`` (first index on ties)."""
+    out = []
+    for key in leaves:
+        g = np.abs(_p15_leaf(np, grads, key).ravel())
+        out += [(key, int(i)) for i in np.argsort(-g, kind="stable")[
+            :per_leaf]]
+    return out
+
+
+def p15_value(np, params, coord):
+    """A reference tree's value at a held coordinate, as a float."""
+    key, i = coord
+    return float(_p15_leaf(np, params, key).ravel()[i])
+
+
+# from the JAX run above: step 1's global gradient norm, each leaf's 12
+# coordinates (flat indices, largest |gradient| first), each step's loss
+# and the parameters at the coordinates after the last step
+P15_REF_GNORM = 18.880964279174805
+P15_COORD_IDX = (
+    (10257344, 126771931, 10256538, 126771588, 126772284, 126772204,
+     10257012, 126772067, 10256572, 10257001, 126771596, 126771688),
+    (550, 649, 492, 32, 418, 194, 27, 413, 408, 192, 376, 539),
+    (818, 500, 147, 77, 828, 758, 523, 608, 160, 103, 622, 395),
+    (368388, 479457, 480356, 431073, 383356, 798401, 607553, 431091,
+     742546, 5491, 423905, 690931),
+    (121, 51, 55, 52, 85, 50, 99, 48, 112, 103, 56, 123),
+    (1319082, 2126506, 1322768, 2234435, 1319888, 1849258, 1852944,
+     2132291, 2233514, 3022403, 2131370, 3727494),
+    (373, 591, 183, 399, 396, 873, 504, 368, 790, 712, 262, 195),
+    (208837, 778566, 208852, 209048, 490069, 209621, 329797, 335911,
+     354904, 467800, 530374, 65350),
+    (126, 93, 63, 87, 23, 119, 62, 44, 11, 122, 124, 98),
+    (1470783, 2455944, 1136956, 2875487, 2455100, 3282824, 1469791,
+     1137800, 2835336, 2660232, 2898592, 1794440),
+    (183, 373, 431, 317, 564, 356, 766, 489, 579, 653, 839, 595),
+    (650662, 699046, 337958, 187430, 354982, 422036, 493054, 650664,
+     492968, 112166, 492990, 800133),
+    (82, 97, 12, 119, 47, 112, 10, 18, 49, 21, 17, 42),
+    (1020262, 3534950, 2676640, 2294630, 2951270, 3797606, 2678886,
+     1295264, 1049446, 2304358, 1929830, 2703206),
+)
+P15_REF_ADAMW_LOSS = (
+    12.116260528564453, 10.851802825927734, 9.648012161254883)
+P15_REF_ADAMW = (
+    0.029179884120821953, 0.01872286945581436, -0.030722619965672493,
+    -0.004759158939123154, 0.01524401269853115, 0.014004879631102085,
+    -0.015515485778450966, 0.013515650294721127, 0.030573323369026184,
+    -0.02826586738228798, 0.03244776278734207, 0.021298594772815704,
+    0.9999204874038696, 0.9999234676361084, 0.9999179840087891,
+    0.999910831451416, 0.9999191164970398, 0.9999168515205383,
+    0.9999207258224487, 1.0000793933868408, 0.9999556541442871,
+    0.9999393820762634, 0.9999328851699829, 0.9999243021011353,
+    0.9999732375144958, 1.000030279159546, 0.9999156594276428,
+    1.0000169277191162, 1.000002384185791, 0.9999379515647888,
+    0.9999553561210632, 0.9999482035636902, 1.000013828277588,
+    1.0000391006469727, 1.0000362396240234, 1.0000269412994385,
+    0.023787539452314377, -0.02744564414024353, 0.029193280264735222,
+    -0.007286264095455408, -0.023612448945641518, 0.023240407928824425,
+    0.00432141637429595, 0.014842319302260876, -0.041749875992536545,
+    -0.003114615799859166, 0.026205509901046753, -0.010724596679210663,
+    -4.4536780478665605e-05, 7.778999133734033e-05, -4.2143718019360676e-05,
+    5.0571939937071875e-05, -4.04856946261134e-05, -1.4178022865962703e-05,
+    -3.0455761589109898e-05, 2.7925865651923232e-05, -5.930688348598778e-05,
+    6.828452023910359e-05, 1.4463988918578252e-05, -1.5212381185847335e-06,
+    -0.01728910394012928, 0.02963349036872387, 0.01285848394036293,
+    -0.005479223094880581, -0.015473423525691032, 0.028178302571177483,
+    0.0018228853587061167, 0.016380675137043, -0.005137030966579914,
+    -0.025674136355519295, 0.03064044564962387, -0.010140033438801765,
+    1.0000183582305908, 1.0000633001327515, 1.000024676322937,
+    1.0000635385513306, 0.9999265074729919, 1.000060796737671,
+    1.0000585317611694, 1.000069499015808, 1.0000654458999634,
+    1.0000420808792114, 1.0000426769256592, 1.0000594854354858,
+    0.016410237178206444, -0.011607196182012558, -0.004009698983281851,
+    0.0031344261951744556, -0.06189674139022827, -0.008571532554924488,
+    -0.011071871966123581, 0.038189489394426346, -0.013880059123039246,
+    -0.014760195277631283, 0.002871483564376831, -0.0021213674917817116,
+    7.044543599477038e-05, -4.4429216359276325e-05, 3.56302443833556e-05,
+    -5.5895285186124966e-05, 6.871418008813635e-05, -7.612175977556035e-05,
+    8.177892595995218e-05, -3.953366558562266e-06, 5.8482535678194836e-05,
+    5.783556844107807e-05, 7.082697993610054e-05, 5.200112354941666e-05,
+    -0.005307108163833618, -0.004129640758037567, -0.004319444764405489,
+    0.007876146584749222, -0.0010596831561997533, -0.0027575697749853134,
+    0.00021122554608155042, -0.024772724136710167, 0.013796964660286903,
+    -0.013756856322288513, -0.003911884967237711, -0.016020482406020164,
+    0.9999147653579712, 1.0000706911087036, 1.0000780820846558,
+    0.9999052286148071, 1.0000780820846558, 0.9999063014984131,
+    1.000075101852417, 0.9999058246612549, 0.999903678894043,
+    1.0000602006912231, 1.000074028968811, 1.0000736713409424,
+    -0.011322728358209133, -0.01239236444234848, -0.04121202602982521,
+    0.007391113787889481, -0.04514831304550171, 0.012361523695290089,
+    -0.020265521481633186, 0.034566644579172134, -0.000360170379281044,
+    -0.00804662611335516, -0.005162383429706097, 0.056461647152900696,
+    -8.660133607918397e-05, 8.06402022135444e-05, -8.910362521419302e-05,
+    8.510464977007359e-05, -7.762322638882324e-05, -7.609633757965639e-05,
+    8.385646651731804e-05, 8.219457231462002e-05, 7.109862781362608e-05,
+    -8.655458805151284e-05, -8.528398757334799e-05, 8.843657997203991e-05,
+    0.044721029698848724, 0.02159261144697666, 0.015505507588386536,
+    -0.011157973669469357, -0.0029533158522099257, 0.0007653613574802876,
+    0.04745841771364212, -0.002992043038830161, 0.030611742287874222,
+    0.0020761750638484955, -0.009479416534304619, 0.011097053997218609)
+P15_REF_ADAFACTOR_LOSS = (
+    12.116260528564453, 10.733209609985352)
+P15_REF_ADAFACTOR = (
+    0.02914145402610302, 0.018701286986470222, -0.030751410871744156,
+    -0.004730070475488901, 0.015210096724331379, 0.014042963273823261,
+    -0.015487810596823692, 0.013551332987844944, 0.030536675825715065,
+    -0.028294401243329048, 0.03248322010040283, 0.021256914362311363,
+    0.9999703168869019, 0.9999695420265198, 0.9999706745147705,
+    0.9999677538871765, 0.9999693036079407, 0.9999681115150452,
+    0.99997478723526, 1.0000427961349487, 0.9999964237213135,
+    0.9999885559082031, 0.9999780654907227, 0.9999711513519287,
+    1.0000123977661133, 1.000008463859558, 0.9999793171882629,
+    0.9999843239784241, 0.9999844431877136, 0.9999842047691345,
+    1.0000025033950806, 0.9999757409095764, 0.9999954700469971,
+    1.000011920928955, 1.0000026226043701, 1.0000107288360596,
+    0.02374986931681633, -0.02746659331023693, 0.02921593002974987,
+    -0.007309694308787584, -0.023542286828160286, 0.023277344182133675,
+    0.004274255596101284, 0.014884617179632187, -0.041783418506383896,
+    -0.0030763749964535236, 0.026162119582295418, -0.010702521540224552,
+    2.06580875783402e-06, 1.1328666914778296e-05, -8.800670343589445e-07,
+    4.761354830407072e-06, 4.674654064729111e-06, 1.3541321095544845e-05,
+    1.0788888175738975e-05, -1.1354150046827272e-05, -6.791398845962249e-06,
+    6.243013558560051e-06, -4.903086392005207e-06, -1.196011362480931e-05,
+    -0.01725086383521557, 0.029595371335744858, 0.012892919592559338,
+    -0.005435403902083635, -0.015521317720413208, 0.028215259313583374,
+    0.0018558010924607515, 0.016338419169187546, -0.0051030381582677364,
+    -0.025712957605719566, 0.030607955530285835, -0.01018062699586153,
+    0.9999865293502808, 1.0001362562179565, 0.9999849796295166,
+    1.0000816583633423, 0.9999396204948425, 1.000052809715271,
+    1.0000419616699219, 1.0001118183135986, 1.0000381469726562,
+    1.0000367164611816, 1.0000147819519043, 1.0000766515731812,
+    0.01638783887028694, -0.011626423336565495, -0.004038384649902582,
+    0.003104447154328227, -0.0619342066347599, -0.008604039438068867,
+    -0.011065622791647911, 0.03819209337234497, -0.013874482363462448,
+    -0.014742781408131123, 0.0028998476918786764, -0.002147042891010642,
+    8.164076280081645e-05, 4.534340860118391e-06, 2.747952748904936e-05,
+    -2.8974813176319003e-05, 8.936050107877236e-06, -0.00014845245459582657,
+    7.012527930783108e-05, 5.610317657556152e-06, 4.9440310249337927e-05,
+    2.5316698156530038e-05, 5.736846651416272e-05, 1.7518272215966135e-05,
+    -0.005308075342327356, -0.004116279538720846, -0.004350943956524134,
+    0.007854224182665348, -0.0010827697115018964, -0.0027641223277896643,
+    0.00018963859474752098, -0.024745438247919083, 0.013782952912151814,
+    -0.013734702952206135, -0.0038923704996705055, -0.016034869477152824,
+    0.9998160004615784, 1.0001120567321777, 1.0002323389053345,
+    0.9998921751976013, 1.0002477169036865, 0.999845564365387,
+    1.0001107454299927, 0.9998258948326111, 0.9998242855072021,
+    1.0000916719436646, 1.0001095533370972, 1.0001306533813477,
+    -0.011306576430797577, -0.012368608266115189, -0.0412350669503212,
+    0.007369601167738438, -0.04517911747097969, 0.01239690463989973,
+    -0.020239273086190224, 0.03457864373922348, -0.00033754276228137314,
+    -0.008038333617150784, -0.0051452419720590115, 0.056490328162908554,
+    -5.321912612998858e-05, 5.1756305765593424e-05, -9.009832137962803e-05,
+    0.0001808690867619589, -3.938492955057882e-05, -3.0339302611537278e-05,
+    9.126587974606082e-05, 8.940177212934941e-05, 4.7290202928707004e-05,
+    -3.320068935863674e-05, -0.00013675786613021046, 8.46391121740453e-05,
+    0.04469246789813042, 0.021626070141792297, 0.015481275506317616,
+    -0.011195817962288857, -0.002988184103742242, 0.0008027192670851946,
+    0.04749862104654312, -0.002992612775415182, 0.030578993260860443,
+    0.002099280245602131, -0.009520160034298897, 0.011066213250160217)
+P15_REF = {"adamw": (P15_REF_ADAMW_LOSS, P15_REF_ADAMW),
+           "adafactor": (P15_REF_ADAFACTOR_LOSS, P15_REF_ADAFACTOR)}
+
+
+# Bars, fixed before the first card run from the port's CPU path on the
+# same weights and batch against these constants (2-11 s a step and ~12 GB
+# on an 8-core CPU host):
+#   PYTHONPATH=src:. python -c "import numpy as np, torch
+#   from chip_smoke import *; from repro_torch.configs import get_config
+#   from repro_torch.models import lm; from repro_torch.optim import (
+#       adamw, adafactor, cosine_schedule)
+#   from repro_torch.train import train_step as ts
+#   cfg = get_config(P15_ARCH); tree = lm.init_params_numpy(cfg, 0)
+#   cpu = lambda b: {k: torch.from_numpy(v) for k, v in b.items()}
+#   for opt, n in ((adamw, 3), (adafactor, 2)):
+#       st, ls, g = p15_train(torch, lm, ts, opt(cosine_schedule(*P15_LR)),
+#           cfg, tree, 'cpu', cpu(p15_batch(np, cfg.vocab_size)), n)
+#       print(ls, g, p15_port_values(lm, cfg, st.params, p15_coord_list()))
+#   for accum in (1, 2):
+#       st, ls, g = p15_train(torch, lm, ts, adamw(cosine_schedule(
+#           *P15_LR)), cfg, tree, 'cpu', cpu(p15_batch(np, cfg.vocab_size,
+#           4)), 1, accum=accum); print(ls, g)"
+# (the worst leaf of the accumulation from the two runs' p.grad / accum).
+# It read: AdamW losses 6.2e-4, 7.0e-4, 6.4e-3 from the JAX run,
+# Adafactor's 6.2e-4, 6.1e-4; step 1's gradient norm 1.13e-3 relative;
+# the coordinates 1.9e-6 (AdamW) and 1.3e-5 (Adafactor); accum_steps=2
+# on 4 x 64 against accum_steps=1: loss 1.9e-6, gradient norm 2.5e-4
+# relative, the worst leaf 1.9e-2 relative L2. Each bar is about twice
+# its reading. The smoke-size block kinds (d) are held card against CPU
+# within the CPU tests' bars against the reference
+# (tests/_torch_train_ref.py): losses 2e-3, gradient norm 2e-3 relative.
+P15_LOSS_TOL = {"adamw": 1.3e-2, "adafactor": 1.3e-3}
+P15_GNORM_RTOL = 2.3e-3
+P15_COORD_TOL = {"adamw": 4e-6, "adafactor": 2.6e-5}
+P15_ACCUM_LOSS_TOL = 4e-6
+P15_ACCUM_GNORM_RTOL = 5e-4
+P15_ACCUM_LEAF_RTOL = 4e-2
+P15_SMOKE = {"mamba2-780m": ("adamw",), "recurrentgemma-9b": ("adamw",),
+             "minicpm3-4b": ("adamw",), "deepseek-moe-16b": ("adamw",),
+             "qwen3-moe-235b-a22b": ("adamw", "adafactor")}
+P15_SMOKE_LOSS_TOL = 2e-3
+P15_SMOKE_GNORM_RTOL = 2e-3
+
+
+def p15_coord_list():
+    """The held coordinates, ((path, repeat), flat index) each, in the
+    order of the pasted values."""
+    return [(key, i) for key, idx in zip(P15_LEAVES, P15_COORD_IDX)
+            for i in idx]
+
+
+def p15_state_bits(torch, state):
+    """The state's parameters, gradients and optimizer tensors, by name."""
+    out = {f"p:{n}": p.detach() for n, p in state.params.named_parameters()}
+    out.update({f"g:{n}": p.grad for n, p in
+                state.params.named_parameters() if p.grad is not None})
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}")
+        else:
+            out[f"s:{path}"] = node
+    walk(state.opt_state.inner, "")
+    return out
+
+
+def p15_diff(torch, a, b):
+    """Names whose tensors differ in a bit (or are missing) between two
+    :func:`p15_state_bits` dicts."""
+    return [k for k in a if k not in b or not bits_equal(torch, a[k], b[k])]
+
+
+def p15_rel(torch, ref, got):
+    return float((got.double() - ref.double()).norm()
+                 / ref.double().norm().clamp_min(1e-30))
+
+
+def p15_train(torch, lm, ts, opt, cfg, tree, dev, batch, steps, remat="none",
+              accum=1, on_step=None):
+    """``steps`` steps of ``make_train_step`` from fresh fp32 masters of
+    ``tree`` on ``batch`` each step: -> (state, losses, step 1's global
+    gradient norm). ``on_step(i, state)`` runs after step i."""
+    from repro_torch.optim import clip_by_global_norm
+    model = lm.params_from_reference(tree, cfg, dev, trainable=True)
+    state = ts.TrainState(model, opt.init(model))
+    step = ts.make_train_step(cfg, opt, remat=remat, accum_steps=accum)
+    losses, gnorm = [], None
+    for i in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            gnorm = float(clip_by_global_norm(
+                {n: p.grad / accum for n, p in model.named_parameters()},
+                1.0)[1])
+        if on_step is not None:
+            on_step(i, state)
+    return state, losses, gnorm
+
+
+def p15_port_values(lm, cfg, model, coords):
+    """The model's parameters at the held coordinates (the reference's
+    (path, repeat) mapped to the port's parameter by
+    ``lm.reference_layout``), as floats."""
+    names = {path: ns for path, ns, _ in lm.reference_layout(cfg)}
+    return [model.get_parameter(names[path][r or 0]).detach().reshape(-1)[
+        i].item() for (path, r), i in coords]
+
+
+def p15_bound_ms(n_params, cfg, b, s):
+    """(ms, FLOPs, bytes) of a train step's least time: the forward and
+    backward products (6 x parameters x tokens, and attention's scores and
+    values, 3 x 4 x S² x heads x d_head a sequence a layer) at the bf16
+    dense peak, plus AdamW's bytes (read p, g, m, v; write p, m, v: 28
+    bytes a parameter) at HBM peak."""
+    tokens = b * s
+    flops = (6 * n_params * tokens
+             + 12 * b * s * s * cfg.n_heads * cfg.d_head * cfg.n_layers)
+    nbytes = 28 * n_params
+    return (flops / PEAK_BF16_FLOPS + nbytes / PEAK_BYTES_PER_S) * 1e3, \
+        flops, nbytes
+
+
+def p15_held(np, tag, name, losses, gnorm, values):
+    """Losses, step 1's gradient norm and the held coordinates of optimizer
+    ``name``'s run against the pasted JAX run, within the phase's bars;
+    -> the readings."""
+    ref_losses, ref_values = P15_REF[name]
+    loss_tol, coord_tol = P15_LOSS_TOL[name], P15_COORD_TOL[name]
+    loss = max(abs(a - r) for a, r in zip(losses, ref_losses))
+    grel = abs(gnorm - P15_REF_GNORM) / P15_REF_GNORM
+    coord = max(abs(a - r) for a, r in zip(values, ref_values))
+    log(f"{tag}: losses {losses} (JAX {list(ref_losses)}), max |diff| "
+        f"{loss:.3e} (bar {loss_tol}); step-1 gradient norm {gnorm:.6f} "
+        f"(JAX {P15_REF_GNORM:.6f}), {grel:.3e} relative (bar "
+        f"{P15_GNORM_RTOL}); {len(values)} coordinates, max |diff| "
+        f"{coord:.3e} (bar {coord_tol})")
+    check(loss <= loss_tol, f"{tag}: loss {loss} from the JAX run")
+    check(grel <= P15_GNORM_RTOL, f"{tag}: gradient norm {grel} relative")
+    check(coord <= coord_tol, f"{tag}: coordinates {coord}")
+    return dict(losses=losses, gnorm=gnorm, loss_diff=loss, gnorm_rel=grel,
+                coord_diff=coord)
+
+
+def phase15(torch, np):
+    """The LM training path at full width (slice 11)."""
+    import contextlib
+    import gc
+    import io
+    import os
+    import shutil
+
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import lm
+    from repro_torch.optim import adafactor, adamw, cosine_schedule
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import train_step as ts
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {}
+    totals = dict(nn_search=0, candidate_sweep=0, fused_moment_sweep=0,
+                  moment_sweep=0)
+
+    def run(fn):
+        """``fn()`` with every kernel count set to 0 just before it and
+        read just after, added to the phase's totals."""
+        result, wall_ms, launches = counted(torch, fn)
+        for k, v in launches.items():
+            totals[k] += v
+        return result, wall_ms
+
+    scratch = ROOT / "build" / f"p15_{os.getpid()}"
+    shutil.rmtree(scratch, ignore_errors=True)
+    try:
+        cfg = get_config(P15_ARCH)
+        lr = cosine_schedule(*P15_LR)
+        coords = p15_coord_list()
+        tag = "phase15"
+
+        # (a) the weights: the serving model's logits, then fp32 masters
+        t0 = time.perf_counter()
+        tree = lm.init_params_numpy(cfg, 0)
+        init_s = time.perf_counter() - t0
+        host = p15_batch(np, cfg.vocab_size)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+        serve = lm.params_from_reference(tree, cfg, dev)
+        (logits_serve, _), _ = run(lambda: lm.forward(
+            serve, cfg, tokens=batch["tokens"]))
+        del serve
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = lm.params_from_reference(tree, cfg, dev, trainable=True)
+        n_params = lm.param_count(model)
+        check(round(n_params / 1e6, 2) == P15_PARAMS_M,
+              f"{tag} a: {n_params} parameters, expected {P15_PARAMS_M} M")
+        check(all(isinstance(p, torch.nn.Parameter)
+                  and p.dtype == torch.float32 for p in model.parameters())
+              and not list(model.buffers()),
+              f"{tag} a: every leaf must be an fp32 nn.Parameter")
+        (logits_train, _), _ = run(lambda: lm.forward(
+            model, cfg, tokens=batch["tokens"]))
+        check(bits_equal(torch, logits_serve, logits_train.detach()),
+              f"{tag} a: the trainable model's logits must be the serving "
+              "model's bits")
+        del model, logits_train, logits_serve
+        gc.collect()
+        p_bytes = 4 * n_params
+        row = out["a"] = dict(params=n_params, param_bytes=p_bytes,
+                              grad_bytes=p_bytes, adamw_bytes=2 * p_bytes,
+                              init_s=init_s)
+
+        # (a), (c): three AdamW steps, the state saved after step 2
+        saved = {}
+
+        def after(i, state):
+            if i == 1:
+                t1 = time.perf_counter()
+                ckpt.save(scratch / "ckpt", state, step=2)
+                saved["save_s"] = time.perf_counter() - t1
+                saved["bytes"] = sum(
+                    f.stat().st_size for f in (scratch / "ckpt").rglob("*")
+                    if f.is_file())
+        torch.cuda.reset_peak_memory_stats(dev)
+        opt = adamw(lr)
+        (state, losses, gnorm), wall_ms = run(lambda: p15_train(
+            torch, lm, ts, opt, cfg, tree, dev, batch, 3, on_step=after))
+        row["train_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        values = p15_port_values(lm, cfg, state.params, coords)
+        row["adamw"] = p15_held(np, f"{tag} a adamw", "adamw", losses,
+                                gnorm, values)
+        log(f"{tag} a: {cfg.n_layers} layers, full width, {n_params / 1e6:.2f}"
+            f" M fp32 parameters: {p_bytes / 1e9:.4f} GB, gradients "
+            f"{p_bytes / 1e9:.4f} GB, AdamW m + v {2 * p_bytes / 1e9:.4f} GB; "
+            f"numpy init {init_s:.1f} s; max_memory_allocated over three "
+            f"steps {row['train_peak_bytes'] / 1e9:.4f} GB; the trainable "
+            f"model's logits the serving model's bits; 3 steps "
+            f"{wall_ms:.0f} ms wall (with the checkpoint)")
+        bits_a = p15_state_bits(torch, state)
+
+        # (c) determinism: the same three steps again, the same bits
+        (again, _, _), _ = run(lambda: p15_train(
+            torch, lm, ts, opt, cfg, tree, dev, batch, 3))
+        differ = p15_diff(torch, bits_a, p15_state_bits(torch, again))
+        check(not differ, f"{tag} c: a second run differs in {differ[:4]}")
+        del again
+        gc.collect()
+        # (c) resume: step 3 from the checkpoint of step 2
+        t1 = time.perf_counter()
+        restored, step_at, _ = ckpt.restore(
+            scratch / "ckpt", ts.abstract_state(cfg, opt), device=dev)
+        restore_s = time.perf_counter() - t1
+        check(step_at == 2 and restored.opt_state.step == 2,
+              f"{tag} c: restored step {step_at}")
+        step_fn = ts.make_train_step(cfg, opt, remat="none")
+        (resumed, _), _ = run(lambda: step_fn(restored, batch))
+        differ = p15_diff(torch, bits_a, p15_state_bits(torch, resumed))
+        check(not differ, f"{tag} c: step 3 from the checkpoint differs in "
+              f"{differ[:4]}")
+        del restored, resumed, bits_a
+        shutil.rmtree(scratch / "ckpt")
+        gc.collect()
+        out["c"] = dict(save_s=saved["save_s"], restore_s=restore_s,
+                        ckpt_bytes=saved["bytes"])
+        log(f"{tag} c: a second run of the three steps the same bits "
+            f"(parameters, gradients, m, v); the TrainState saved after "
+            f"step 2 ({saved['bytes'] / 1e9:.3f} GB, {saved['save_s']:.1f} s)"
+            f" and restored onto ts.abstract_state ({restore_s:.1f} s): step "
+            "3 from it the uninterrupted step 3's bits")
+
+        # (a) timing: the step on the device, and its bound
+        timing = out["timing"] = {}
+        for b, s in ((P15_B, P15_S), (8, 128)):
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in
+                  p15_batch(np, cfg.vocab_size, b, s).items()}
+            times = []
+            for i in range(6):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                start.record()
+                state, _ = step_fn(state, tb)
+                host_ms = (time.perf_counter() - t1) * 1e3
+                end.record()
+                end.synchronize()
+                if i:  # the first at a new shape is a warm-up
+                    times.append((start.elapsed_time(end), host_ms))
+            step_ms = statistics.median(t for t, _ in times)
+            issue_ms = statistics.median(h for _, h in times)
+            kernels, busy, _ = device_profile(torch, lambda: step_fn(
+                state, tb))
+            bound_ms, flops, nbytes = p15_bound_ms(n_params, cfg, b, s)
+            idle = None if busy is None else 1 - busy / step_ms
+            timing[f"{b}x{s}"] = dict(
+                step_ms=step_ms, host_issue_ms=issue_ms,
+                tokens_per_s=b * s / step_ms * 1e3, kernels=kernels,
+                busy_ms=busy, idle=idle, bound_ms=bound_ms, flops=flops,
+                bytes=nbytes)
+            log(f"{tag} a timing {b} x {s}: step {step_ms:.3f} ms (CUDA "
+                f"events, median of 5), the host issues it in "
+                f"{issue_ms:.3f} ms, {b * s / step_ms * 1e3:.0f} tokens/s; "
+                f"{kernels} device kernels, busy {busy} ms, idle "
+                f"{'n/a' if idle is None else f'{idle:.1%}'}; bound "
+                f"{bound_ms:.4f} ms ({flops / 1e12:.3f} TFLOP at "
+                f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s + {nbytes / 1e9:.2f} "
+                f"GB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)")
+        del state, step_fn
+        gc.collect()
+
+        # (a) Adafactor, on the stacked layout (24 repeats)
+        (state, losses, gnorm), _ = run(lambda: p15_train(
+            torch, lm, ts, adafactor(lr), cfg, tree, dev, batch, 2))
+        check(state.opt_state.inner["groups/0/mixer_norm/scale"]["vr"].shape
+              == (cfg.n_layers,), f"{tag} a: Adafactor must factor the "
+              "stacked norm scale")
+        values = p15_port_values(lm, cfg, state.params, coords)
+        row["adafactor"] = p15_held(np, f"{tag} a adafactor", "adafactor",
+                                    losses, gnorm, values)
+        del state
+        gc.collect()
+
+        # (b) remat: full and dots give none's bits; each mode's peak
+        remat = out["b"] = {}
+        base = None
+        for mode in ("none", "full", "dots"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)  # none's bits, kept
+            (state, losses, _), _ = run(lambda: p15_train(
+                torch, lm, ts, adamw(lr), cfg, tree, dev, batch, 1,
+                remat=mode))
+            remat[mode] = dict(peak_bytes=torch.cuda.max_memory_allocated(
+                dev) - held, loss=losses[0])
+            bits = p15_state_bits(torch, state)
+            if base is None:
+                base = bits
+            else:
+                differ = p15_diff(torch, base, bits)
+                check(not differ, f"{tag} b: remat {mode!r} differs from "
+                      f"'none' in {differ[:4]}")
+            del state, bits
+            gc.collect()
+        del base
+        log(f"{tag} b: remat 'full' and 'dots' give 'none''s loss, gradients "
+            f"and parameters bit for bit; peak memory of a fresh state's "
+            f"step (above what was allocated before it) none / full / dots "
+            + " / ".join(f"{remat[m]['peak_bytes'] / 1e9:.4f}"
+                         for m in remat) + " GB")
+        # (b) accumulation: accum_steps=2 on 4 x 64 against one batch
+        b4 = {k: torch.from_numpy(v).to(dev) for k, v in
+              p15_batch(np, cfg.vocab_size, 4).items()}
+        got = {}
+        for accum in (1, 2):
+            (state, losses, gnorm), _ = run(lambda: p15_train(
+                torch, lm, ts, adamw(lr), cfg, tree, dev, b4, 1,
+                accum=accum))
+            got[accum] = (losses[0], gnorm, {
+                n: p.grad / accum for n, p in
+                state.params.named_parameters()})
+            del state
+            gc.collect()
+        loss_d = abs(got[1][0] - got[2][0])
+        grel = abs(got[1][1] - got[2][1]) / got[1][1]
+        leaf = max(p15_rel(torch, got[1][2][n], got[2][2][n])
+                   for n in got[1][2])
+        del got
+        gc.collect()
+        remat["accum"] = dict(loss_diff=loss_d, gnorm_rel=grel,
+                              leaf_rel=leaf)
+        log(f"{tag} b: accum_steps=2 on 4 x 64 against accum_steps=1: loss "
+            f"{loss_d:.3e} (bar {P15_ACCUM_LOSS_TOL}), gradient norm "
+            f"{grel:.3e} (bar {P15_ACCUM_GNORM_RTOL}), worst leaf "
+            f"{leaf:.3e} relative L2 (bar {P15_ACCUM_LEAF_RTOL})")
+        check(loss_d <= P15_ACCUM_LOSS_TOL and grel <= P15_ACCUM_GNORM_RTOL
+              and leaf <= P15_ACCUM_LEAF_RTOL, f"{tag} b: accumulation")
+        del tree
+        gc.collect()
+
+        # (d) every other block kind at smoke size: card against CPU
+        kinds = out["d"] = {}
+        for arch, names in P15_SMOKE.items():
+            scfg = get_smoke(arch)
+            stree = lm.init_params_numpy(scfg, 0)
+            sb = p15_batch(np, scfg.vocab_size, 2, 32, seed=P15_SEED)
+            for name in names:
+                make = {"adamw": adamw, "adafactor": adafactor}[name]
+                res = {}
+                for where in ("cpu", "cuda", "cuda again"):
+                    d = torch.device("cpu") if where == "cpu" else dev
+                    bd = {k: torch.from_numpy(v).to(d) for k, v in sb.items()}
+                    (st, losses, gnorm), _ = run(lambda: p15_train(
+                        torch, lm, ts, make(lr), scfg, stree, d, bd, 3))
+                    res[where] = (losses, gnorm, {
+                        k: v.cpu() for k, v in
+                        p15_state_bits(torch, st).items()})
+                loss_d = max(abs(a - b) for a, b in zip(res["cpu"][0],
+                                                        res["cuda"][0]))
+                grel = abs(res["cpu"][1] - res["cuda"][1]) / res["cpu"][1]
+                differ = p15_diff(torch, res["cuda"][2], res["cuda again"][2])
+                kinds[f"{arch} {name}"] = dict(loss_diff=loss_d,
+                                               gnorm_rel=grel)
+                log(f"{tag} d {arch} ({name}, 3 steps of 2 x 32): card vs "
+                    f"CPU loss {loss_d:.3e} (bar {P15_SMOKE_LOSS_TOL}), "
+                    f"step-1 gradient norm {grel:.3e} relative (bar "
+                    f"{P15_SMOKE_GNORM_RTOL}); two card runs the same bits")
+                check(loss_d <= P15_SMOKE_LOSS_TOL
+                      and grel <= P15_SMOKE_GNORM_RTOL,
+                      f"{tag} d {arch} {name}: card vs CPU")
+                check(not differ, f"{tag} d {arch} {name}: two card runs "
+                      f"differ in {differ[:4]}")
+
+        # (e) the launcher at its defaults, the smoke resume, the example
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            losses, wall_ms = run(lambda: train_launch.main([]))
+        lines = text.getvalue().splitlines()
+        for line in lines:
+            log(f"{tag} e launcher: {line}")
+        check(len(losses) == 100 and losses[-1] < losses[0],
+              f"{tag} e: the launcher's loss must fall ({losses[:1]} -> "
+              f"{losses[-1:]})")
+        check(any(line.startswith("step     0 loss") and "tok/s" in line
+                  for line in lines)
+              and lines[-1].startswith("done: 100 steps"),
+              f"{tag} e: the launcher's lines")
+        out["e"] = dict(launcher_wall_s=wall_ms / 1e3, first=losses[0],
+                        last=losses[-1], lines=lines)
+        smoke = ["--smoke", "--ckpt-every", "4"]
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            run(lambda: train_launch.main(smoke + [
+                "--steps", "6", "--ckpt-dir", str(scratch / "a")]))
+            run(lambda: train_launch.main(smoke + [
+                "--steps", "12", "--ckpt-dir", str(scratch / "a")]))
+            run(lambda: train_launch.main(smoke + [
+                "--steps", "12", "--ckpt-dir", str(scratch / "b")]))
+        check("resumed from step 6" in text.getvalue(),
+              f"{tag} e: the second smoke run must resume at step 6")
+
+        def final(d):
+            with np.load(d / "step_0000000012" / "arrays.npz") as f:
+                return {k: f[k] for k in f.files}
+        fa, fb = final(scratch / "a"), final(scratch / "b")
+        check(sorted(fa) == sorted(fb)
+              and all(np.array_equal(fa[k], fb[k]) for k in fa),
+              f"{tag} e: the resumed smoke run must give the uninterrupted "
+              "run's bits")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            (ex_losses, ex_ms) = run(lambda: train_lm.main(
+                ["--ckpt-dir", str(scratch / "example")]))
+        check(text.getvalue().rstrip().endswith("OK"),
+              f"{tag} e: the example must print OK")
+        out["e"].update(example_s=ex_ms / 1e3, example_first=ex_losses[0],
+                        example_last=ex_losses[-1])
+        log(f"{tag} e: the launcher at its defaults (qwen2-0.5b, full "
+            f"width, 100 steps of 8 x 128) {wall_ms / 1e3:.1f} s with its "
+            f"init, loss {losses[0]:.4f} -> {losses[-1]:.4f}; --smoke "
+            f"stopped at 6 and resumed to 12: the uninterrupted run's bits; "
+            f"the example OK in {ex_ms / 1e3:.1f} s (loss "
+            f"{ex_losses[0]:.4f} -> {ex_losses[-1]:.4f})")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    check(not any(totals.values()), f"phase15: a port kernel ran: {totals}")
+    out["launch_totals"] = totals
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase15: every port-kernel count 0; {out['seconds']:.1f} s")
     return out
 
 
@@ -4573,8 +5347,9 @@ def main(argv=None):
     report["phase12"] = phase12(torch, np)
     report["phase13"] = phase13(torch, np)
     report["phase14"] = phase14(torch, np)
+    report["phase15"] = phase15(torch, np)
     totals = {k: v + sum(report[f"phase{p}"]["launch_totals"][k]
-                         for p in (7, 8, 9, 10, 11, 12, 13, 14))
+                         for p in (7, 8, 9, 10, 11, 12, 13, 14, 15))
               for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(

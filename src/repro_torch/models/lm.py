@@ -1,5 +1,5 @@
-"""Config-driven decoder LM: forward / prefill / decode (port of
-``repro.models.lm`` without its sharding rules and training loss).
+"""Config-driven decoder LM: forward and loss / prefill / decode (port of
+``repro.models.lm`` without its sharding rules).
 
 The reference tiles ``block_pattern`` over ``n_layers`` and splits the
 layers into a prefix (MoE-exception layers, unrolled), groups (a scan over
@@ -32,10 +32,24 @@ layer (K/V, or MLA's latent ``c`` and ``k_rope``) or the (conv state,
 recurrent state) tuple of an SSM layer. There are no sharding constraints
 (the reference's ``aconstraint`` is a no-op on one device; the partition
 rules and the expert-parallel MoE they select are ROADMAP queue 1 item
-8.4); ``loss_fn`` and remat wait for the training item 8.3.
+8.4).
+
+Training: ``params_from_reference(..., trainable=True)`` (and
+``init_params`` / ``init_abstract``) give a model whose leaves are all
+fp32 ``nn.Parameter``s, the reference's masters; the layers cast them at
+use, so its forward gives the serving model's bits. ``forward`` builds an
+autograd graph when the leaves require grad (a serving model's buffers do
+not); ``prefill`` and ``decode_step`` stay under ``torch.inference_mode``.
+``loss_fn`` is the reference's cross-entropy plus the MoE aux, and
+``forward(..., remat=)`` checkpoints one pattern period of the grouped
+layers at a time, as the reference remats its scanned group function.
+``reference_layout`` maps each leaf of the reference's tree (``groups``
+leaves stacked over repeats) to the port's parameters, for the optimizer
+(Adafactor factors the stacked leaves) and the checkpoints.
 """
 from __future__ import annotations
 
+import functools
 import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -43,6 +57,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -296,15 +311,18 @@ def init_params_numpy(cfg: ArchConfig, seed: int = 0) -> dict:
 
 class ParamTree(nn.Module):
     """A nested dict of tensors as a module: subtrees are child modules,
-    leaves are buffers (inference weights, no gradients). ``p["name"]`` and
-    ``"name" in p`` read it as the reference's functions read a dict, and
-    ``.to(device)`` moves it all."""
+    leaves are buffers (inference weights, no gradients) or, with
+    ``trainable``, ``nn.Parameter``s. ``p["name"]`` and ``"name" in p`` read
+    it as the reference's functions read a dict, and ``.to(device)`` moves
+    it all."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(name, ParamTree(value))
+                self.add_module(name, ParamTree(value, trainable))
+            elif trainable:
+                self.register_parameter(name, nn.Parameter(value))
             else:
                 self.register_buffer(name, value)
 
@@ -312,7 +330,8 @@ class ParamTree(nn.Module):
         return getattr(self, name)
 
     def __contains__(self, name: str) -> bool:
-        return name in self._modules or name in self._buffers
+        return (name in self._modules or name in self._buffers
+                or name in self._parameters)
 
 
 class DecoderLM(ParamTree):
@@ -320,13 +339,14 @@ class DecoderLM(ParamTree):
     ``final_norm``, ``lm_head`` (untied heads) and ``layers`` ("0".."L-1",
     the reference's layer order). ``forward`` is :func:`forward`."""
 
-    def __init__(self, cfg: ArchConfig, tree: dict):
-        super().__init__(tree)
+    def __init__(self, cfg: ArchConfig, tree: dict, trainable: bool = False):
+        super().__init__(tree, trainable)
         self.cfg = cfg
 
-    def forward(self, tokens=None, embeds=None, positions=None):
+    def forward(self, tokens=None, embeds=None, positions=None,
+                remat: str = "none"):
         return forward(self, self.cfg, tokens=tokens, embeds=embeds,
-                       positions=positions)
+                       positions=positions, remat=remat)
 
 
 def bf16_leaf(path) -> bool:
@@ -345,53 +365,145 @@ def _leaf_tensor(arr, device, bf16: bool) -> torch.Tensor:
     return torch.from_numpy(arr).to(device=device, dtype=dtype, copy=True)
 
 
-def _convert(tree: dict, device, index=None, path=()) -> dict:
+def _convert(tree: dict, device, index=None, path=(), fp32=False) -> dict:
     """numpy subtree at ``path`` -> tensors on ``device``, bf16 where
-    :func:`bf16_leaf` says; ``index`` takes one repeat of stacked group
-    leaves."""
-    return {name: (_convert(v, device, index, path + (name,))
+    :func:`bf16_leaf` says unless ``fp32``; ``index`` takes one repeat of
+    stacked group leaves."""
+    return {name: (_convert(v, device, index, path + (name,), fp32)
                    if isinstance(v, dict) else
                    _leaf_tensor(v if index is None else v[index], device,
-                                bf16_leaf(path + (name,))))
+                                not fp32 and bf16_leaf(path + (name,))))
             for name, v in tree.items()}
 
 
-def params_from_reference(tree: dict, cfg: ArchConfig,
-                          device="cuda") -> DecoderLM:
-    """The reference's parameter tree (numpy arrays, stacked ``groups``
-    leaves, as ``lm.init_params`` gives it after ``np.asarray``) as the
-    port's :class:`DecoderLM` on ``device`` (default ``"cuda"``; raises
-    without a card)."""
-    dev = resolve_device(device)
+def _port_tree(tree: dict, cfg: ArchConfig, convert) -> dict:
+    """The reference's tree in the port's layout (``layers`` "0".."L-1"),
+    each subtree made by ``convert(subtree, index)`` (``index`` the repeat
+    of a stacked group leaf, else None)."""
     prefix, reps, suffix, _ = _layer_plan(cfg)
     period = len(cfg.block_pattern)
-    out = {name: _convert(tree[name], dev)
+    out = {name: convert(tree[name], None)
            for name in ("embed", "final_norm", "lm_head") if name in tree}
     layers = {}
     for i, li in enumerate(prefix):
-        layers[li] = _convert(tree["prefix"][str(i)], dev)
+        layers[li] = convert(tree["prefix"][str(i)], None)
     base = len(prefix)
     for r in range(reps):
         for j in range(period):
-            layers[base + r * period + j] = _convert(tree["groups"][str(j)],
-                                                     dev, r)
+            layers[base + r * period + j] = convert(tree["groups"][str(j)], r)
     for i, li in enumerate(suffix):
-        layers[li] = _convert(tree["suffix"][str(i)], dev)
+        layers[li] = convert(tree["suffix"][str(i)], None)
     out["layers"] = {str(li): layers[li] for li in range(cfg.n_layers)}
-    return DecoderLM(cfg, out)
+    return out
 
 
-def init_params(cfg: ArchConfig, seed: int = 0, device="cuda") -> DecoderLM:
+def params_from_reference(tree: dict, cfg: ArchConfig, device="cuda",
+                          trainable: bool = False) -> DecoderLM:
+    """The reference's parameter tree (numpy arrays, stacked ``groups``
+    leaves, as ``lm.init_params`` gives it after ``np.asarray``) as the
+    port's :class:`DecoderLM` on ``device`` (default ``"cuda"``; raises
+    without a card). ``trainable``: every leaf an fp32 ``nn.Parameter``
+    (the reference's training masters) instead of the serving buffers."""
+    dev = resolve_device(device)
+    return DecoderLM(cfg, _port_tree(
+        _ordered(tree, param_shapes(cfg)), cfg,
+        lambda sub, r: _convert(sub, dev, r, fp32=trainable)), trainable)
+
+
+def _ordered(tree: dict, like: dict) -> dict:
+    """``tree``'s keys in ``like``'s order (a tree read back from a
+    checkpoint or through JAX comes with sorted keys), so the model's
+    parameters, and the global-norm sum over them, take one order
+    whatever the source."""
+    return {k: _ordered(tree[k], v) if isinstance(v, dict) else tree[k]
+            for k, v in like.items()}
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device="cuda",
+                trainable: bool = False) -> DecoderLM:
     """:func:`init_params_numpy` as a :class:`DecoderLM` on ``device``."""
-    return params_from_reference(init_params_numpy(cfg, seed), cfg, device)
+    return params_from_reference(init_params_numpy(cfg, seed), cfg, device,
+                                 trainable)
+
+
+def init_abstract(cfg: ArchConfig) -> DecoderLM:
+    """The trainable model's parameters as fp32 tensors on the ``meta``
+    device: shapes and dtypes, nothing allocated (the restore target)."""
+    def meta(sub, r):
+        return {name: meta(v, r) if isinstance(v, dict) else torch.empty(
+            v[0] if r is None else v[0][1:], device="meta")
+            for name, v in sub.items()}
+    return DecoderLM(cfg, _port_tree(param_shapes(cfg), cfg, meta), True)
+
+
+def reference_layout(cfg: ArchConfig) -> list:
+    """Each leaf of the reference's parameter tree, in ``param_shapes``
+    order, as ``(path, names, stacked)``: ``path`` its keys (a tuple),
+    ``names`` the port's parameter names ("."-joined) that it holds, and
+    ``stacked`` True for a ``groups`` leaf, whose repeats (``names``, in
+    repeat order) stack along a leading dim, even a single repeat."""
+    prefix, reps, suffix, _ = _layer_plan(cfg)
+    period = len(cfg.block_pattern)
+    base = len(prefix)
+    out = []
+
+    def walk(tree, path):
+        for name, v in tree.items():
+            p = path + (name,)
+            if isinstance(v, dict):
+                walk(v, p)
+            elif p[0] == "groups":
+                rest = ".".join(p[2:])
+                out.append((p, [f"layers.{base + r * period + int(p[1])}."
+                                f"{rest}" for r in range(reps)], True))
+            elif p[0] in ("prefix", "suffix"):
+                li = (prefix if p[0] == "prefix" else suffix)[int(p[1])]
+                out.append((p, [f"layers.{li}." + ".".join(p[2:])], False))
+            else:
+                out.append((p, [".".join(p)], False))
+
+    walk(param_shapes(cfg), ())
+    return out
+
+
+def to_reference(cfg: ArchConfig, flat: dict) -> dict:
+    """Tensors keyed by the port's parameter names (parameters, gradients,
+    AdamW moments) as the reference's nested tree, ``groups`` leaves
+    stacked over repeats (``torch.stack``: new tensors)."""
+    tree: dict = {}
+    for path, names, stacked in reference_layout(cfg):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (torch.stack([flat[n] for n in names]) if stacked
+                          else flat[names[0]])
+    return tree
+
+
+def from_reference(cfg: ArchConfig, tree: dict) -> dict:
+    """The inverse of :func:`to_reference`: the port's parameter names ->
+    the leaves of a reference tree (a repeat of a stacked leaf is an index
+    into it)."""
+    out = {}
+    for path, names, stacked in reference_layout(cfg):
+        leaf = tree
+        for key in path:
+            leaf = leaf[key]
+        for r, name in enumerate(names):
+            out[name] = leaf[r] if stacked else leaf
+    return out
+
+
+def _leaves(model: DecoderLM) -> list:
+    return list(model.parameters()) + list(model.buffers())
 
 
 def param_count(model: DecoderLM) -> int:
-    return sum(b.numel() for b in model.buffers())
+    return sum(t.numel() for t in _leaves(model))
 
 
 def param_bytes(model: DecoderLM) -> int:
-    return sum(b.numel() * b.element_size() for b in model.buffers())
+    return sum(t.numel() * t.element_size() for t in _leaves(model))
 
 
 # ---------------------------------------------------------------------------
@@ -514,22 +626,97 @@ def _head(params, cfg: ArchConfig, x):
     return logits
 
 
-@torch.inference_mode()
+def _group_forward(params, x, positions, cfg: ArchConfig, layers):
+    """The layers ``layers`` in turn; -> (x, the sum of their MoE aux
+    losses in layer order, or None without a MoE layer)."""
+    aux = None
+    for li in layers:
+        x, a = _layer_forward(params["layers"][str(li)], x, positions, cfg,
+                              *_layer_kinds(cfg, li))
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the 2-D
+    products (``aten.mm``: every dense layer, whose 3-D activations
+    ``matmul`` folds to 2-D), recompute the rest (the batched products of
+    attention, the SSD and the experts among them), as the reference's
+    ``checkpoint_dots_with_no_batch_dims``."""
+    if op is torch.ops.aten.mm.default:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: str):
+    """``fn`` recomputed in the backward: not at all ("none"), wholly
+    ("full") or but for its 2-D products ("dots"); any other ``remat``
+    raises ``ValueError``, as the reference's ``_maybe_remat``."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(remat)
+
+
 def forward(params, cfg: ArchConfig, tokens=None, embeds=None,
-            positions=None):
+            positions=None, remat: str = "none"):
     """-> (logits (B,S,V) fp32, aux scalar fp32): aux sums the MoE layers'
-    ``moe_aux_total`` in layer order (0 for an arch without MoE layers)."""
+    ``moe_aux_total`` in layer order (0 for an arch without MoE layers).
+
+    Builds an autograd graph when the leaves require grad (a trainable
+    model). ``remat`` applies to the grouped layers, one pattern period a
+    checkpoint, as the reference remats its scanned group function; the
+    prefix and suffix layers are never recomputed."""
+    group_fn = _maybe_remat(_group_forward, remat)
+    prefix, reps, suffix, _ = _layer_plan(cfg)
+    period = len(cfg.block_pattern)
     x = _embed_in(params, cfg, tokens, embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+    runs = ([(_group_forward, [li]) for li in prefix]
+            + [(group_fn, range(first, first + period))
+               for first in range(len(prefix), len(prefix) + reps * period,
+                                  period)]
+            + [(_group_forward, [li]) for li in suffix])
     aux = torch.zeros((), device=x.device)
-    for li in range(cfg.n_layers):
-        x, a = _layer_forward(params["layers"][str(li)], x, positions, cfg,
-                              *_layer_kinds(cfg, li))
+    for fn, layers in runs:
+        x, a = fn(params, x, positions, cfg, layers)
         if a is not None:
             aux = aux + a
     return _head(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict, remat: str = "none"):
+    """batch: {"tokens" | "embeds", "labels", optional "mask"} -> (loss +
+    aux, {"nll": loss, "aux": aux}).
+
+    The reference's cross-entropy: logsumexp minus the label logit, taken
+    by a masked sum over the vocabulary (no gather, whose backward adds
+    through atomics on the card); the mean, or with ``mask`` the masked
+    sum over ``max(sum(mask), 1)``."""
+    logits, aux = forward(params, cfg, tokens=batch.get("tokens"),
+                          embeds=batch.get("embeds"), remat=remat)
+    labels = batch["labels"]
+    lse = torch.logsumexp(logits, dim=-1)                      # (B,S)
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    label_logit = torch.where(vocab == labels[..., None], logits,
+                              0.0).sum(-1)
+    nll = lse - label_logit
+    mask = batch.get("mask")
+    if mask is None:
+        loss = nll.mean()
+    else:
+        mask = mask.to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return loss + aux, {"nll": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -967,3 +967,101 @@ def test_moe_router_and_mla_decode_refuse_tf32_on_card(cuda_device):
                     lm.forward(model, cfg, tokens=toks)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# -- slice 11: the training path ---------------------------------------------
+
+def _train_smoke(arch, name, device, remat="none", steps=3):
+    """``steps`` train steps of ``arch``'s smoke config from
+    ``init_params_numpy(cfg, 0)`` on one seeded 2 x 32 batch: -> (losses,
+    step 1's global gradient norm, every parameter and optimizer tensor
+    on the host)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import lm
+    from repro_torch.optim import (adafactor, adamw, clip_by_global_norm,
+                                   cosine_schedule)
+    from repro_torch.train import train_step as ts
+    cfg = get_smoke(arch)
+    opt = {"adamw": adamw, "adafactor": adafactor}[name](
+        cosine_schedule(1e-3, 2, 50))
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, cfg.vocab_size, (2, 33), dtype=np.int32)
+    batch = {"labels": torch.from_numpy(toks[:, 1:]).to(device)}
+    if cfg.embed_inputs:
+        batch["tokens"] = torch.from_numpy(toks[:, :-1]).to(device)
+    else:
+        batch["embeds"] = torch.from_numpy(rng.standard_normal(
+            (2, 32, cfg.d_model)).astype(np.float32) * 0.1).to(device)
+    state = ts.init_state(0, cfg, opt, device)
+    step = ts.make_train_step(cfg, opt, remat=remat)
+    losses, gnorm = [], None
+    for i in range(steps):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        if i == 0:
+            gnorm = float(clip_by_global_norm(
+                {n: p.grad for n, p in state.params.named_parameters()},
+                1.0)[1])
+    tensors = {f"p:{n}": p.detach().cpu() for n, p in
+               state.params.named_parameters()}
+    tensors.update({f"g:{n}": p.grad.cpu() for n, p in
+                    state.params.named_parameters()})
+    inner = state.opt_state.inner
+    for key, v in inner.items():
+        for n, t in v.items():
+            tensors[f"s:{key}:{n}"] = t.cpu()
+    return losses, gnorm, tensors
+
+
+def _same_bits(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k].view(torch.int32), b[k].view(torch.int32)), k
+
+
+@pytest.mark.parametrize("arch,name", [
+    ("qwen2-0.5b", "adamw"), ("mamba2-780m", "adamw"),
+    ("recurrentgemma-9b", "adamw"), ("minicpm3-4b", "adamw"),
+    ("deepseek-moe-16b", "adamw"), ("qwen3-moe-235b-a22b", "adafactor"),
+    ("musicgen-medium", "adamw")])
+def test_train_step_on_card_matches_cpu(cuda_device, arch, name):
+    """Three steps of each block kind at smoke size: the losses within
+    2e-3 and step 1's gradient norm within 2e-3 relative of the CPU
+    path's (the CPU tests' bars against the reference); a second card run
+    and ``remat="full"`` / ``"dots"`` give the same bits."""
+    cpu = _train_smoke(arch, name, torch.device("cpu"))
+    card = _train_smoke(arch, name, cuda_device)
+    assert max(abs(a - b) for a, b in zip(cpu[0], card[0])) <= 2e-3
+    assert abs(cpu[1] - card[1]) <= 2e-3 * cpu[1]
+    _same_bits(card[2], _train_smoke(arch, name, cuda_device)[2])
+    for remat in ("full", "dots"):
+        _same_bits(card[2], _train_smoke(arch, name, cuda_device, remat)[2])
+
+
+def test_checkpoint_resume_on_card_gives_uninterrupted_bits(cuda_device,
+                                                            tmp_path):
+    """Save after step 2 on the card, restore onto the abstract state on
+    the card: step 3 gives the uninterrupted step 3's bits."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import train_step as ts
+    cfg = get_smoke("deepseek-moe-16b")
+    opt = adamw(cosine_schedule(1e-3, 2, 50))
+    step = ts.make_train_step(cfg, opt)
+    rng = np.random.default_rng(5)
+    batches = [{k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 16), dtype=np.int32)).to(cuda_device)
+        for k in ("tokens", "labels")} for _ in range(3)]
+    state = ts.init_state(0, cfg, opt, cuda_device)
+    for i, b in enumerate(batches):
+        state, _ = step(state, b)
+        if i == 1:
+            ckpt.save(tmp_path, state, step=2)
+    restored, at, _ = ckpt.restore(tmp_path, ts.abstract_state(cfg, opt),
+                                   device=cuda_device)
+    assert at == 2
+    resumed, _ = step(restored, batches[2])
+    for (n, p), (_, q) in zip(state.params.named_parameters(),
+                              resumed.params.named_parameters()):
+        assert torch.equal(p, q), n
