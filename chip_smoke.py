@@ -268,8 +268,40 @@ that fails raises. Phases:
      ``OK``. No port kernel runs on this path (the reference trains
      through XLA's autodiff of XLA ops): every count must stay 0.
 
+ 16. Partitioning, the expert-parallel MoE, the compressed data-parallel
+     mean and the dry-run (slice 12: ``launch/{mesh,partition,specs,
+     dryrun}.py``, ``models/moe_ep.py``, ``optim/compression.py``,
+     ``roofline/report.py``): (a) ``moe_forward_ep`` at deepseek-moe-16b's
+     full width (phase 14's layer-1 weights, capacity factor 1.25) on a
+     (2, 4) ("data", "model") mesh of ``cuda:0`` repeated 8 times, 4 x 64
+     seeded bf16 tokens (2 x 16 a device): the output at 168 coordinates,
+     the aux losses and each shard's dropped pairs held to a pasted JAX
+     CPU run of the reference's 8-device ``moe_forward_ep`` (constants
+     below) within bars fixed before the first card run, on the card and
+     through the port's CPU path (the card's routes the CPU path's but on
+     near-ties); ``dropped_frac`` 0 as the reference reports it; the
+     forward's device ms and the bytes each all-to-all moves; at capacity
+     factor E / k the single-program ``moe_forward``'s output where both
+     route alike; one backward pass through both all-to-alls with a finite,
+     non-zero gradient norm; phase 14's 4-layer model under
+     ``partitioning(mesh, {"moe_impl": "shard_map_ep", ...})`` (its MoE
+     layers on the EP path) against the same forward without a context.
+     (b) ``compressed_grad_reduce`` over qwen2-0.5b's 290 gradient leaves
+     (494.03 M values, Gaussian, drawn on the card) on a 4-replica
+     ("data",) mesh of ``cuda:0``: one reduction within 2% of the exact
+     mean, 20 steps of error feedback within 2% accumulated, the device
+     ms of a reduction and its wire bytes against an fp32 ring; on 25
+     leaves (the first and last layer's, the final norm) the int8 codes,
+     means and residuals the bits of the port's CPU path. (c) the dry-run CLI
+     (``repro_torch.launch.dryrun``, ``meta`` devices) on qwen2-0.5b /
+     decode_32k / single and fpps-icp / fleet_130k / multi: each record's
+     per-device bytes, FLOPs and dominant term. No
+     port kernel runs on these paths: every count must stay 0. Phase 16
+     runs right after phase 14, on its model, which it frees before phase
+     15.
+
 Every kernel count is set to 0 just before each main-path run (phases 2, 3,
-5, 7, 8, 9, 10, 11, 12, 13, 14 and 15) and read just after. The last lines are
+5, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16) and read just after. The last lines are
 the ``{"kernels": [...]}`` report, the card line from ``nvidia-smi`` and
 ``{"ok": true, "device": {...}}``.
 """
@@ -3914,7 +3946,9 @@ def phase13(torch, np):
 # routed otherwise) and 0.03125 at 2 x 256 + 16 (2 of 32),
 # qwen3-moe-235b-a22b 0.0625 (6 of 128) and 0.046875 (2 of 32); at the
 # published factor over every token deepseek 0.42578 and qwen3 3.125.
-P14_ARCHS = ("minicpm3-4b", "deepseek-moe-16b", "qwen3-moe-235b-a22b")
+# deepseek-moe-16b runs last: its model stays on the card for phase 16, and
+# no other arch's memory readings may include it.
+P14_ARCHS = ("minicpm3-4b", "qwen3-moe-235b-a22b", "deepseek-moe-16b")
 P14_SEED = 14
 P14_LAYERS = {"minicpm3-4b": 62, "deepseek-moe-16b": 4,
               "qwen3-moe-235b-a22b": 2}
@@ -4130,7 +4164,8 @@ P14_REF = {
 
 class MoETrace:
     """Within the ``with`` block, every MoE layer call of the port's
-    ``models.moe`` (``route`` and ``dispatch`` wrapped) appends a record:
+    ``models.moe`` (``route`` and ``dispatch`` wrapped; a batched call of
+    ``models.moe_ep``, one record a block) appends a record:
     its router logits (T, E), the chosen experts (T, k, ascending), each
     token's dropped flag (any of its pairs past the capacity) and the
     layer's ``dropped_frac`` (the share of pairs dropped). A forward or a
@@ -4146,17 +4181,22 @@ class MoETrace:
         torch = self.torch
 
         def route(logits, cfg):
-            self.calls.append(dict(logits=logits.float().clone()))
+            for block in (logits if logits.dim() == 3 else logits[None]):
+                self.calls.append(dict(logits=block.float().clone()))
             return self.orig[0](logits, cfg)
 
         def dispatch(idx, c, e):
             out = self.orig[1](idx, c, e)
             _, st_tok, _, _, keep = out
-            dropped = torch.zeros(idx.shape[0], dtype=torch.int32,
-                                  device=idx.device)
-            dropped.index_add_(0, st_tok, (~keep).int())
-            self.calls[-1].update(idx=idx.sort(-1).values, dropped=dropped > 0,
-                                  dropped_frac=(~keep).float().mean())
+            blocks = ((idx, st_tok, keep) if idx.dim() == 3 else
+                      (idx[None], st_tok[None], keep[None]))
+            for rec, ix, st, kp in zip(self.calls[-len(blocks[0]):],
+                                       *blocks):
+                dropped = torch.zeros(ix.shape[0], dtype=torch.int32,
+                                      device=ix.device)
+                dropped.index_add_(0, st, (~kp).int())
+                rec.update(idx=ix.sort(-1).values, dropped=dropped > 0,
+                           dropped_frac=(~kp).float().mean())
             return out
 
         moe.route, moe.dispatch = route, dispatch
@@ -4245,7 +4285,8 @@ def cache_bytes(cache):
 
 
 def phase14(torch, np):
-    """MLA and the single-device MoE FFN at full width (slice 10)."""
+    """MLA and the single-device MoE FFN at full width (slice 10); ->
+    (report, the P16_ARCH model on the card, for phase 16)."""
     import contextlib
     import dataclasses
     import gc
@@ -4504,6 +4545,8 @@ def phase14(torch, np):
         row["c_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
         log(f"{tag} c: max_memory_allocated over (a)-(c) "
             f"{row['c_peak_bytes'] / 1e9:.4f} GB")
+        if arch == P16_ARCH:  # phase 16 runs its MoE layers again
+            kept = model
         del model
         gc.collect()
         torch.cuda.empty_cache()
@@ -4547,7 +4590,7 @@ def phase14(torch, np):
     check(sum(totals.values()) == 0, f"phase14: the MLA / MoE LM path "
           f"launched port kernels {totals}")
     log(f"phase14: {time.perf_counter() - t_phase:.1f} s")
-    return out
+    return out, kept
 
 
 # Slice 11: the LM training path at qwen2-0.5b's full width and depth
@@ -5243,6 +5286,568 @@ def phase15(torch, np):
     return out
 
 
+# Slice 12: the expert-parallel MoE, the compressed data-parallel mean and
+# the dry-run on the card. (a) models/moe_ep.py's moe_forward_ep at
+# deepseek-moe-16b's full width (d_model 2,048, 64 routed experts of 1,408,
+# top-6 unnormalised, 2 shared, capacity factor 1.25 as published) on a
+# (2, 4) ("data", "model") mesh of cuda:0 repeated 8 times: 4 x 64 tokens
+# of 0.5 N(0, 1) from np.random.default_rng(P16_SEED) in bf16, the batch
+# over "data" and the sequence over "model", so each device routes 2 x 16
+# tokens (capacity 8 a shard). The weights are phase 14's deepseek-moe-16b
+# layer 1 (its first MoE layer: groups/0 repeat 0 of
+# lm.init_params_numpy(cfg, 0)), so no second numpy init runs. Its output
+# at 168 coordinates (P16_COORD_SEED), its aux losses and each shard's
+# dropped pairs are held to a JAX CPU run of the reference's
+# moe_forward_ep on an 8-device host mesh on the same weights and input
+# (~30 s and ~8 GB on an 8-core CPU host; the weight leaves drawn as
+# lm.init_params_numpy draws them, repeat 0 only):
+#   PYTHONPATH=src:. JAX_PLATFORMS=cpu XLA_FLAGS=\
+#   --xla_force_host_platform_device_count=8 python -c "import dataclasses
+#   import jax, numpy as np, jax.numpy as jnp; from chip_smoke import *
+#   from repro.compat import make_mesh; from repro.models import moe as jm
+#   from repro.launch.partition import partitioning
+#   from repro.models.moe_ep import moe_forward_ep
+#   from repro_torch.configs import get_config
+#   from repro_torch.models import lm as tlm
+#   cfg = dataclasses.replace(get_config(P16_ARCH), n_layers=4)
+#   sp = tlm.param_shapes(cfg)['groups']['0']['ffn']
+#   def leaf(path, s, bf16): return jnp.asarray(tlm._draw(
+#       'groups/0/ffn/' + path, (1,) + s[0][1:], s[1], 0)[0]).astype(
+#       jnp.bfloat16 if bf16 else jnp.float32)
+#   p = {'router': {'kernel': leaf('router/kernel',
+#       sp['router']['kernel'], False)}, **{k: leaf(k, sp[k], True)
+#       for k in ('wi', 'wg', 'wo')}, 'shared': {k: {'kernel': leaf(
+#       f'shared/{k}/kernel', sp['shared'][k]['kernel'], True)}
+#       for k in ('wi', 'wg', 'wo')}}
+#   x = jnp.asarray(np.random.default_rng(P16_SEED).standard_normal((4,
+#       64, 2048), dtype=np.float32) * np.float32(0.5)).astype(jnp.bfloat16)
+#   m = jm.MoEConfig(**dataclasses.asdict(tlm.moe_config(cfg)))
+#   mesh = make_mesh(P16_MESH, ('data', 'model'))
+#   with partitioning(mesh, P16_RULES) as r: y, aux = jax.jit(lambda pp,
+#       xx: moe_forward_ep(pp, xx, m, mesh, r))(p, x)
+#   y = np.asarray(y.astype(jnp.float32))
+#   print([float(y[tuple(c)]) for c in p16_coords(np)], aux)"
+# and each shard's dropped pairs from the reference's route and
+# _local_dispatch under shard_map on the same mesh. The bars were fixed
+# before the first card run, from the port's CPU path (the same mesh of
+# repeated CPU devices) against these constants: every shard's routes the
+# reference's, max |out diff| 3.05e-5 at the coordinates (0.00195 over
+# all 524,288 values, one bf16 ulp at their largest magnitude, 0.54), the
+# aux losses 0 and 1.05e-7 relative; P16_TOL is three bf16 ulps there,
+# P16_AUX_RTOL 1e-5. The card's routes are held to the CPU path's (a route
+# that differs must be a near-tie, P14_ROUTE_TIE); the card's coordinates
+# are held where their shard routes as the CPU path does.
+# Then a copy at capacity factor E / k (no pair dropped anywhere) against
+# the port's single-program moe_forward on the card: the tokens both route
+# alike within P16_NODROP_TOL (the CPU path reads 0.00195), a route that
+# differs a near-tie; one backward pass through both all-to-alls (x and
+# every weight a leaf) with a finite, non-zero gradient norm; and
+# deepseek-moe-16b at phase 14's 4 layers and weights under
+# partitioning(mesh, P16_RULES) at no-drop capacity, its 3 MoE layers on
+# the EP path (24 shard calls), against the same forward without a
+# context on phase 14's 2 x 64 tokens (2 x 16 tokens a device): the
+# logits of tokens routed alike in every layer within P16_LM_ULPS bf16 ulp
+# of their largest magnitude (2^-7 of it; the port's CPU path on a smoke
+# deepseek reads 0, as did the card's runs FA-FC under a looser bar).
+# (b) optim/compression.py's compressed_grad_reduce over qwen2-0.5b's 290
+# gradient leaves (494.03 M values) on a 4-replica ("data",) mesh of
+# cuda:0: Gaussian gradients (as the reference worker's) drawn on the card
+# per (step, replica). One reduction: each replica the same mean, relative
+# error against the exact mean under P16_REL_TOL, device ms, the wire bytes
+# against an fp32 ring; 20 steps of N(0.3, 1) gradients with error
+# feedback: the accumulated relative error under P16_REL_TOL (the worker's
+# bars). The int8 codes, means and residuals of the leaves of P16_LEAVES
+# are the bits of the port's CPU path on the same values.
+# (c) the dry-run CLI (launch/dryrun.py, meta devices) on two cells.
+P16_ARCH = "deepseek-moe-16b"
+P16_SEED = 16
+P16_X = (4, 64)
+P16_MESH = (2, 4)
+P16_RULES = {"tokens": ("data",), "expert": ("model",), "fsdp": None,
+             "moe_impl": "shard_map_ep"}
+P16_COORD_SEED = 160
+P16_TOL = 6e-3
+P16_AUX_RTOL = 1e-5
+P16_NODROP_TOL = 1e-2
+P16_LM_ULPS = 1
+P16_REPLICAS = 4
+P16_REL_TOL = 0.02
+P16_EF_STEPS = 20
+# the leaves of the first and last layer and the final norm (25 leaves):
+# their codes, means and residuals held to the CPU path's bits
+P16_LEAVES = ("layers.0.", "layers.23.", "final_norm.")
+P16_DRYRUN = (("qwen2-0.5b", "decode_32k", "single"),
+              ("fpps-icp", "fleet_130k", "multi"))
+P16_REF_DROPS = (0, 1, 0, 0, 0, 0, 0, 0)
+P16_REF_AUX = {"load_balance_loss": 1.0287522077560425,
+               "router_z_loss": 18.1940860748291,
+               "moe_aux_total": 0.019222838804125786}
+P16_REF_OUT = (
+    0.060791015625, -0.08642578125, -0.146484375, -0.16796875, 0.0947265625,
+    0.05859375, -0.09521484375, 0.08984375, -0.1396484375, -0.0087890625,
+    0.162109375, 0.0240478515625, -0.0267333984375, 0.0478515625,
+    -0.09033203125, 0.142578125, -0.080078125, 0.087890625, 0.00341796875,
+    -0.154296875, -0.0771484375, -0.005950927734375, -0.138671875,
+    0.021484375, 0.07763671875, 0.01116943359375, -0.0042724609375,
+    0.0595703125, -0.068359375, 0.0947265625, -0.044921875, -0.08251953125,
+    -0.1865234375, -0.01055908203125, 0.0908203125, 0.064453125, 0.1953125,
+    0.0947265625, -0.01416015625, -0.07568359375, -0.07177734375,
+    -0.056396484375, 0.10498046875, -0.06005859375, -0.06787109375,
+    -0.08349609375, 0.111328125, 0.02392578125, -0.107421875, 0.038818359375,
+    0.154296875, 0.169921875, -0.09765625, -0.08203125, -0.1748046875,
+    0.01416015625, 0.134765625, -0.037353515625, -0.1328125, -0.0233154296875,
+    -0.10400390625, 0.0693359375, -0.03466796875, 0.1708984375, 0.048828125,
+    0.00567626953125, -0.053466796875, -0.041259765625, -0.1142578125,
+    -0.216796875, 0.050048828125, 0.06103515625, 0.0235595703125, 0.044921875,
+    -0.1005859375, -0.040771484375, -0.043212890625, 0.1953125, 0.1337890625,
+    0.037353515625, -0.039794921875, -0.0771484375, 0.2060546875,
+    0.04638671875, 0.162109375, 0.259765625, -0.0267333984375, 0.025146484375,
+    0.1826171875, -0.08642578125, -0.0693359375, -0.1748046875,
+    -0.034912109375, -0.1552734375, 0.150390625, -0.2470703125, 0.08642578125,
+    0.1484375, 0.053466796875, 0.0693359375, -0.09521484375, 0.0869140625,
+    0.0654296875, -0.1328125, 0.1689453125, 0.06640625, 0.0615234375,
+    0.0189208984375, -0.05029296875, 0.02197265625, -0.10986328125,
+    -0.09521484375, 0.064453125, 0.1689453125, -0.11328125, 0.0419921875,
+    0.062255859375, -0.050537109375, 0.08837890625, 0.11474609375,
+    -0.1298828125, 0.08935546875, -0.0069580078125, 0.2060546875, 0.119140625,
+    0.07373046875, 0.09375, -0.130859375, -0.166015625, 0.015869140625,
+    0.04248046875, 0.09326171875, -0.061767578125, -0.1904296875, 0.310546875,
+    -0.08349609375, -0.10986328125, 0.02294921875, 0.349609375,
+    -0.050048828125, 0.02783203125, -0.236328125, -0.0849609375,
+    0.026611328125, 0.232421875, -0.013427734375, -0.08251953125,
+    -0.08642578125, 0.0033111572265625, 0.2001953125, 0.01806640625,
+    -0.08544921875, 0.12255859375, 0.02587890625, 0.1064453125, -0.216796875,
+    -0.01025390625, 0.061279296875, -0.138671875, 0.0274658203125, -0.171875,
+    0.07421875, 0.1376953125, -0.1328125, 0.10107421875, -0.05419921875,
+    0.0277099609375, 0.109375)
+
+
+def p16_coords(np):
+    """The 168 (b, s, d) coordinates of P16_REF_OUT."""
+    return np.stack([np.random.default_rng(P16_COORD_SEED).integers(
+        0, n, 168) for n in P16_X + (2048,)], 1)
+
+
+def p16_token_routes(torch, calls, b, s, n_ep):
+    """Each token's chosen experts (B, S, k) from a MoETrace's records of
+    one EP layer (one record a shard, in block order: token block i over
+    the batch, expert shard j over the sequence)."""
+    n_tok = len(calls) // n_ep
+    bl, sl = b // n_tok, s // n_ep
+    out = torch.empty((b, s, calls[0]["idx"].shape[1]), dtype=torch.long)
+    for n, c in enumerate(calls):
+        i, j = divmod(n, n_ep)
+        out[i * bl:(i + 1) * bl, j * sl:(j + 1) * sl] = c["idx"].cpu(
+        ).reshape(bl, sl, -1)
+    return out
+
+
+def p16_flips(torch, ep_calls, sp_calls, b, s, n_ep, k, tag):
+    """(tokens routed alike in every MoE layer by the EP records and the
+    single-program records of the same forward, the number of tokens
+    routed otherwise): a token's first layer whose routes differ must be
+    a near-tie in the single-program run's probabilities."""
+    n_layers = len(sp_calls)
+    flipped = torch.zeros((b, s), dtype=torch.bool)
+    worst = 0.0
+    per = len(ep_calls) // n_layers
+    for layer in range(n_layers):
+        ep = p16_token_routes(torch, ep_calls[layer * per:(layer + 1) * per],
+                              b, s, n_ep)
+        sp = sp_calls[layer]["idx"].cpu().reshape(b, s, -1)
+        diff = (ep != sp).any(-1)
+        first = diff & ~flipped
+        if bool(first.any()):
+            top = torch.softmax(sp_calls[layer]["logits"].cpu(), -1).topk(
+                k + 1).values
+            gap = (top[:, k - 1] - top[:, k]).reshape(b, s)
+            worst = max(worst, float(gap[first].max()))
+        flipped |= diff
+    check(worst <= P14_ROUTE_TIE, f"{tag}: a token's first route that "
+          f"differs between the EP and the single-program path lies where "
+          f"the k-th and (k+1)-th probabilities are {worst} apart (near-tie "
+          f"bar {P14_ROUTE_TIE})")
+    return ~flipped, int(flipped.sum())
+
+
+def phase16(torch, np, ds_model):
+    """The expert-parallel MoE, the compressed data-parallel mean and the
+    dry-run (slice 12)."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+    import math
+    import os
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import partition as tpart
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import lm
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models import moe_ep
+    from repro_torch.optim import compression as comp
+    from repro_torch.roofline.report import count_collectives
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    out = {}
+    totals = dict(nn_search=0, candidate_sweep=0, fused_moment_sweep=0,
+                  moment_sweep=0)
+
+    def run(fn):
+        result, wall_ms, launches = counted(torch, fn)
+        for key, v in launches.items():
+            totals[key] += v
+        return result, wall_ms
+
+    # (a) the expert-parallel MoE at deepseek-moe-16b's full width
+    tag = "phase16 a"
+    cfg = ds_model.cfg
+    mcfg = lm.moe_config(cfg)
+    k, n_ep = mcfg.top_k, P16_MESH[1]
+    check(cfg.name == P16_ARCH and cfg.n_layers == P14_LAYERS[P16_ARCH],
+          f"{tag}: phase 14's {P16_ARCH} model is needed, got {cfg.name}")
+    layer = ds_model["layers"]["1"]["ffn"]
+    names = ("router/kernel", "wi", "wg", "wo", "shared/wi/kernel",
+             "shared/wg/kernel", "shared/wo/kernel")
+
+    def get(tree, name):
+        for key in name.split("/"):
+            tree = tree[key]
+        return tree
+
+    def params(device, grad=False):
+        p = {}
+        for name in names:
+            node = p
+            *parents, leaf = name.split("/")
+            for key in parents:
+                node = node.setdefault(key, {})
+            t = get(layer, name).detach().to(device)
+            node[leaf] = t.clone().requires_grad_(True) if grad else t
+        return p
+
+    x_np = np.random.default_rng(P16_SEED).standard_normal(
+        P16_X + (cfg.d_model,), dtype=np.float32) * np.float32(0.5)
+    x = torch.from_numpy(x_np).to(dev).to(torch.bfloat16)
+    mesh = make_debug_mesh(P16_MESH, device=dev)
+    cpu_mesh = make_debug_mesh(P16_MESH, device="cpu")
+    p_card, p_cpu = params(dev), params("cpu")
+
+    def ep(p, xx, m, msh):
+        with tpart.partitioning(msh, P16_RULES) as rules:
+            return moe_ep.moe_forward_ep(p, xx, m, msh, rules)
+
+    with MoETrace(torch) as card_tr, count_collectives() as coll:
+        (y, aux), wall = run(lambda: ep(p_card, x, mcfg, mesh))
+    with MoETrace(torch) as cpu_tr:
+        y_cpu, aux_cpu = ep(p_cpu, x.cpu(), mcfg, cpu_mesh)
+    check(tuple(y.shape) == P16_X + (cfg.d_model,) and y.dtype == torch.bfloat16
+          and bool(torch.isfinite(y).all()), f"{tag}: bad output")
+    check(len(card_tr.calls) == 8, f"{tag}: {len(card_tr.calls)} shard "
+          f"calls, expected 8")
+    flips, widest = route_diffs(torch, card_tr, cpu_tr, k)
+    check(widest <= P14_ROUTE_TIE, f"{tag}: a route differs between the "
+          f"card and the CPU path at a {widest} probability gap")
+    shard_flip = [bool((a["idx"].cpu() != b["idx"].cpu()).any())
+                  for a, b in zip(card_tr.calls, cpu_tr.calls)]
+    t_loc = x.shape[0] * x.shape[1] // 8
+    drops = {name: tuple(round(float(c["dropped_frac"]) * t_loc * k)
+                         for c in tr.calls)
+             for name, tr in (("cuda", card_tr), ("cpu", cpu_tr))}
+    check(drops["cpu"] == P16_REF_DROPS, f"{tag} cpu: dropped pairs a shard "
+          f"{drops['cpu']}, the reference's {P16_REF_DROPS}")
+    coords = p16_coords(np)
+    want = np.array(P16_REF_OUT)
+    row = out["a"] = dict(params_layer=sum(get(layer, n).numel()
+                                           for n in names),
+                          routes_differ=flips, widest_flip_gap=widest,
+                          shard_flip=shard_flip, drops=drops["cuda"])
+    for name, yy, aa in (("cuda", y, aux), ("cpu", y_cpu, aux_cpu)):
+        got = yy.float().cpu().numpy()
+        held = [n for n, c in enumerate(coords)
+                if name == "cpu" or not shard_flip[(c[0] // 2) * n_ep
+                                                   + c[1] // 16]]
+        err = float(np.abs(got[tuple(coords[held].T)] - want[held]).max())
+        check(err <= P16_TOL, f"{tag} {name}: max |out - reference| {err} "
+              f"> {P16_TOL} at {len(held)} coordinates")
+        aux_err = {key: abs(float(aa[key]) - v) / abs(v)
+                   for key, v in P16_REF_AUX.items()}
+        if name == "cpu" or not any(shard_flip):
+            check(max(aux_err.values()) <= P16_AUX_RTOL, f"{tag} {name}: "
+                  f"aux {aux_err} relative > {P16_AUX_RTOL}")
+            check(drops[name] == P16_REF_DROPS, f"{tag} {name}: dropped "
+                  f"pairs {drops[name]}")
+        check(float(aa["dropped_frac"]) == 0.0, f"{tag} {name}: "
+              f"dropped_frac {float(aa['dropped_frac'])}, the reference "
+              f"reports 0")
+        row[name] = dict(max_abs_err=err, coords=len(held), aux_rel=aux_err)
+    card_vs_cpu = float((y.float().cpu() - y_cpu.float()).abs().max())
+    a2a = coll.get("all-to-all", {"count": 0, "bytes": 0})
+    ms, ms_lo, ms_hi, ahead = device_ms(
+        torch, lambda: ep(p_card, x, mcfg, mesh), reps=5, blocks=3)
+    row.update(card_vs_cpu=card_vs_cpu, wall_ms=wall, ms=ms,
+               ms_spread=(ms_lo, ms_hi), ahead=ahead,
+               all_to_all_bytes=a2a["bytes"], all_to_alls=a2a["count"])
+    log(f"{tag}: moe_forward_ep at {P16_ARCH}'s full width (layer 1 of "
+        f"phase 14's weights, {row['params_layer'] / 1e6:.2f} M parameters) "
+        f"on a {P16_MESH} mesh of cuda:0, x {tuple(x.shape)} bf16 | "
+        f"card vs JAX reference max |diff| {row['cuda']['max_abs_err']:.6f} "
+        f"at {row['cuda']['coords']} coordinates (CPU path "
+        f"{row['cpu']['max_abs_err']:.6f}; bar {P16_TOL}), card vs CPU "
+        f"{card_vs_cpu:.6f} over all; aux relative card "
+        f"{max(row['cuda']['aux_rel'].values()):.2e} CPU "
+        f"{max(row['cpu']['aux_rel'].values()):.2e} (bar {P16_AUX_RTOL}); "
+        f"dropped pairs a shard {drops['cuda']} (reference {P16_REF_DROPS});"
+        f" {flips} routes differ from the CPU path (widest gap "
+        f"{widest:.2e}) | device {ms:.4f} ms a forward ({ms_lo:.4f}-"
+        f"{ms_hi:.4f}, queued ahead {ahead}); {a2a['count']} all-to-alls "
+        f"moving {a2a['bytes']} bytes between mesh coordinates")
+
+    # no drop: EP against the single-program moe_forward on the card
+    nd = dataclasses.replace(mcfg, capacity_factor=mcfg.n_experts / k)
+    with MoETrace(torch) as ep_tr:
+        (y_ep, _), _ = run(lambda: ep(p_card, x, nd, mesh))
+    with MoETrace(torch) as sp_tr:
+        (y_sp, _), _ = run(lambda: tmoe.moe_forward(p_card, x, nd))
+    dropped = sum(int(c["dropped"].sum()) for c in ep_tr.calls + sp_tr.calls)
+    check(dropped == 0, f"{tag} no-drop: {dropped} tokens dropped a pair")
+    b, s = P16_X
+    held, n_flip = p16_flips(torch, ep_tr.calls, sp_tr.calls, b, s, n_ep, k,
+                             f"{tag} no-drop")
+    diff = (y_ep.float() - y_sp.float()).abs().amax(-1).cpu()
+    nodrop_err = float(diff[held].max())
+    check(nodrop_err <= P16_NODROP_TOL, f"{tag} no-drop: EP vs moe_forward "
+          f"{nodrop_err} > {P16_NODROP_TOL}")
+    row["nodrop"] = dict(max_abs_err=nodrop_err, held=int(held.sum()),
+                         routed_otherwise=n_flip)
+    log(f"{tag} no-drop (capacity factor {nd.capacity_factor:.4f}): EP vs "
+        f"the single-program moe_forward on the card, max |diff| "
+        f"{nodrop_err:.6f} over {int(held.sum())} of {held.numel()} tokens "
+        f"(bar {P16_NODROP_TOL}; {n_flip} routed otherwise on near-ties)")
+    del y_ep, y_sp, ep_tr, sp_tr
+
+    # one backward pass through both all-to-alls
+    p_grad = params(dev, grad=True)
+    xg = x.detach().clone().requires_grad_(True)
+
+    def fwd_bwd():
+        yy, aa = ep(p_grad, xg, mcfg, mesh)
+        ((yy.float() ** 2).sum() + aa["moe_aux_total"]).backward()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    (_, bwd_wall) = run(fwd_bwd)  # warm-up and the launch count
+    for t in [xg] + [get(p_grad, n) for n in names]:
+        t.grad = None
+    torch.cuda.synchronize()
+    start.record()
+    run(fwd_bwd)
+    end.record()
+    end.synchronize()
+    fb_ms = start.elapsed_time(end)
+    leaves = [xg] + [get(p_grad, n) for n in names]
+    gnorm = math.sqrt(sum(float((t.grad.float() ** 2).sum()) for t in leaves))
+    check(math.isfinite(gnorm) and gnorm > 0, f"{tag} backward: gradient "
+          f"norm {gnorm}")
+    check(all(t.grad is not None for t in leaves), f"{tag} backward: a leaf "
+          f"got no gradient")
+    row["backward"] = dict(grad_norm=gnorm, fwd_bwd_ms=fb_ms)
+    log(f"{tag} backward: sum(out²) + aux through both all-to-alls, "
+        f"gradient norm over x and the 7 weight leaves {gnorm:.6e} "
+        f"(finite, non-zero); forward + backward {fb_ms:.3f} ms (CUDA "
+        f"events, host gaps included)")
+    del p_grad, xg, leaves, p_cpu, y_cpu
+    gc.collect()
+
+    # the 4-layer model under the EP rules at no-drop capacity
+    lm_cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / k)
+    tok = torch.from_numpy(np.random.default_rng(P14_SEED).integers(
+        0, cfg.vocab_size, (P12_B, P12_S), dtype=np.int32)).to(dev)
+
+    def forward_ep():
+        with tpart.partitioning(mesh, P16_RULES):
+            return lm.forward(ds_model, lm_cfg, tokens=tok)
+    with MoETrace(torch) as ep_tr:
+        (logits_ep, _), lm_wall = run(forward_ep)
+    with MoETrace(torch) as sp_tr:
+        (logits, _), _ = run(lambda: lm.forward(ds_model, lm_cfg, tokens=tok))
+    n_moe = len(sp_tr.calls)
+    check(len(ep_tr.calls) == 8 * n_moe and n_moe == cfg.n_layers - 1,
+          f"{tag} lm: {len(ep_tr.calls)} EP shard calls for {n_moe} MoE "
+          f"layers")
+    held, n_flip = p16_flips(torch, ep_tr.calls, sp_tr.calls, P12_B, P12_S,
+                             n_ep, k, f"{tag} lm")
+    lm_err = float((logits_ep - logits).abs().amax(-1).cpu()[held].max())
+    lm_bar = P16_LM_ULPS * 2.0 ** -7 * float(
+        logits.float().abs().amax(-1).cpu()[held].max())
+    check(lm_err <= lm_bar, f"{tag} lm: logits under the EP rules vs "
+          f"without a context {lm_err} > {lm_bar} ({P16_LM_ULPS} bf16 ulp "
+          f"of their largest magnitude)")
+    lm_equal = bool(torch.equal(logits_ep.cpu()[held], logits.cpu()[held]))
+    row["lm"] = dict(max_abs_err=lm_err, bar=lm_bar, bit_equal=lm_equal,
+                     held=int(held.sum()), routed_otherwise=n_flip,
+                     wall_ms=lm_wall)
+    log(f"{tag} lm: {P16_ARCH} at phase 14's {cfg.n_layers} layers under "
+        f"partitioning(mesh, {P16_RULES}) at capacity factor "
+        f"{lm_cfg.capacity_factor:.4f}: {n_moe} MoE layers on the EP path "
+        f"({len(ep_tr.calls)} shard calls), logits vs the same forward "
+        f"without a context max |diff| {lm_err:.6f} over {int(held.sum())} "
+        f"of {held.numel()} tokens, bit-equal {lm_equal} (bar {lm_bar:.6f}, "
+        f"{P16_LM_ULPS} bf16 ulp of their largest; {n_flip} routed "
+        f"otherwise on near-ties); {lm_wall:.1f} ms wall")
+    del logits_ep, logits, ep_tr, sp_tr, card_tr, cpu_tr, y, p_card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the compressed data-parallel mean over qwen2-0.5b's gradients
+    tag = "phase16 b"
+    q_cfg = get_config("qwen2-0.5b")
+    shapes = {n: tuple(t.shape)
+              for n, t in lm.init_abstract(q_cfg).named_parameters()}
+    n_values = sum(math.prod(s) for s in shapes.values())
+    check(len(shapes) == 290 and round(n_values / 1e6, 2) == 494.03,
+          f"{tag}: {len(shapes)} leaves, {n_values} values")
+    mesh4 = make_debug_mesh((P16_REPLICAS,), ("data",), device=dev)
+    gen = torch.Generator(device=dev)
+
+    def grads(step, shift=0.0):
+        out_g = []
+        for r in range(P16_REPLICAS):
+            gen.manual_seed(P16_SEED * 1000 + step * 10 + r)
+            out_g.append({n: torch.randn(s, generator=gen, device=dev) + shift
+                          for n, s in shapes.items()})
+        return out_g
+
+    def zeros():
+        return [{n: torch.zeros(s, device=dev) for n, s in shapes.items()}
+                for _ in range(P16_REPLICAS)]
+
+    def exact_mean(gs):
+        return {n: sum(g[n] for g in gs) / P16_REPLICAS for n in gs[0]}
+
+    def rel(a, b_):
+        num = sum(float(((a[n] - b_[n]).double() ** 2).sum()) for n in a)
+        den = sum(float((b_[n].double() ** 2).sum()) for n in a)
+        return math.sqrt(num / den)
+
+    gs = grads(0)
+    efs = zeros()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    with count_collectives() as wire:
+        (means, efs), red_wall = run(lambda: comp.compressed_grad_reduce(
+            gs, mesh4, "data", efs))
+    end.record()
+    end.synchronize()
+    red_ms = start.elapsed_time(end)
+    same = all(torch.equal(m[n], means[0][n]) for m in means[1:]
+               for n in shapes)
+    check(same, f"{tag}: the replicas' means differ")
+    single = rel(means[0], exact_mean(gs))
+    check(single < P16_REL_TOL, f"{tag}: one reduction's relative error "
+          f"{single} >= {P16_REL_TOL}")
+    wire_bytes = sum(d["bytes"] for d in wire.values())
+    ring = comp.fp32_ring_bytes(n_values, P16_REPLICAS)
+    # bits against the port's CPU path on the subset
+    cpu_mesh4 = make_debug_mesh((P16_REPLICAS,), ("data",), device="cpu")
+    subset = {n: s for n, s in shapes.items() if n.startswith(P16_LEAVES)}
+    split = 0
+    for n in subset:
+        zero = [torch.zeros(shapes[n], device=dev)] * P16_REPLICAS
+        codes_c, codes_h = [], []
+        m_c, e_c = comp.compressed_psum_mean([g[n] for g in gs], mesh4,
+                                             "data", zero, codes=codes_c)
+        m_h, e_h = comp.compressed_psum_mean(
+            [g[n].cpu() for g in gs], cpu_mesh4, "data",
+            [z.cpu() for z in zero], codes=codes_h)
+        (q_c, q2_c), (q_h, q2_h) = codes_c[0], codes_h[0]
+        for a_, b_ in zip(q_c + q2_c + m_c + e_c, q_h + q2_h + m_h + e_h):
+            split += int((a_.cpu() != b_).sum())
+        check(all(torch.equal(m_c[0], m[n]) for m in means), f"{tag}: "
+              f"{n}'s mean differs from compressed_grad_reduce's")
+    check(split == 0, f"{tag}: {split} values of the codes, means and "
+          f"residuals differ between the card and the CPU path on "
+          f"{len(subset)} leaves")
+    del gs, means, efs
+    gc.collect()
+    # 20 steps of error feedback
+    efs = zeros()
+    acc_c = {n: torch.zeros(s, device=dev) for n, s in shapes.items()}
+    acc_e = {n: torch.zeros(s, device=dev) for n, s in shapes.items()}
+    t0 = time.perf_counter()
+    for step in range(P16_EF_STEPS):
+        gs = grads(step + 1, shift=0.3)
+        (means, efs), _ = run(lambda: comp.compressed_grad_reduce(
+            gs, mesh4, "data", efs))
+        exact = exact_mean(gs)
+        for n in shapes:
+            acc_c[n] += means[0][n]
+            acc_e[n] += exact[n]
+        del gs, means, exact
+    ef_s = time.perf_counter() - t0
+    accumulated = rel(acc_c, acc_e)
+    check(accumulated < P16_REL_TOL, f"{tag}: {P16_EF_STEPS}-step "
+          f"accumulated relative error {accumulated} >= {P16_REL_TOL}")
+    out["b"] = dict(leaves=len(shapes), values=n_values, rel_err=single,
+                    ef_rel_err=accumulated, reduce_ms=red_ms,
+                    reduce_wall_ms=red_wall, ef_steps_s=ef_s,
+                    wire_bytes=wire_bytes, fp32_ring_bytes=ring,
+                    subset_leaves=len(subset),
+                    subset_values=sum(math.prod(v) for v in subset.values()),
+                    cpu_split=split)
+    log(f"{tag}: compressed_grad_reduce over qwen2-0.5b's {len(shapes)} "
+        f"gradient leaves ({n_values / 1e6:.2f} M values) on "
+        f"{P16_REPLICAS} replicas of cuda:0: relative error vs the exact "
+        f"mean {single:.5f}, {P16_EF_STEPS} error-feedback steps "
+        f"accumulated {accumulated:.5f} in {ef_s:.1f} s (bars "
+        f"{P16_REL_TOL}); one reduction {red_ms:.2f} ms (CUDA events, host "
+        f"gaps included; {red_wall:.1f} ms wall); wire {wire_bytes} bytes vs "
+        f"an fp32 ring's {ring} ({ring / wire_bytes:.3f}x fewer); on the "
+        f"{len(subset)} leaves of {P16_LEAVES} "
+        f"({out['b']['subset_values'] / 1e6:.2f} M values) the codes, means "
+        f"and residuals the CPU path's bits")
+    del efs, acc_c, acc_e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the dry-run CLI on meta devices
+    tag = "phase16 c"
+    out_dir = ROOT / "build" / f"p16_dryrun_{os.getpid()}"
+    out["c"] = {}
+    try:
+        for arch, shape, mesh_name in P16_DRYRUN:
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rec, wall = run(lambda: dryrun.main([
+                    "--arch", arch, "--shape", shape, "--mesh", mesh_name,
+                    "--out-dir", str(out_dir)]))
+            check(rec.get("status") == "ok", f"{tag} {arch}/{shape}/"
+                  f"{mesh_name}: {rec.get('error')}")
+            mem, r = rec["memory"], rec["roofline"]
+            out["c"][rec["label"]] = dict(memory=mem, roofline=r,
+                                          flops=rec["analyzed"]["flops"],
+                                          wall_ms=wall)
+            log(f"{tag} {rec['label']}: {rec['n_devices']} meta devices, "
+                f"{mem['argument_bytes'] / 1e9:.4f} GB of arguments and "
+                f"{mem['temp_bytes'] / 1e9:.4f} GB of temp bytes a device "
+                f"(fits 80 GB: {mem['fits_h100_80g']}), "
+                f"{rec['analyzed']['flops']:.4e} FLOPs a device, roofline "
+                f"compute {r['compute_s']:.6f} s memory {r['memory_s']:.6f} "
+                f"s collective {r['collective_s']:.6f} s, dominant "
+                f"{r['dominant']}, useful {r['useful_fraction']:.3f}; "
+                f"{wall:.0f} ms")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out["launch_totals"] = totals
+    check(sum(totals.values()) == 0, f"phase16: a port kernel ran: {totals}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase16: every port-kernel count 0; {out['seconds']:.1f} s")
+    return out
+
+
 def compare_minimizers(report):
     """Log each point-to-plane run of phase 7 beside the point-to-point run
     of the same path (phases 2, 3 and 5): iterations and wall ms per
@@ -5346,10 +5951,14 @@ def main(argv=None):
     report["phase11"] = phase11(torch, np, scenes, logs["fused_icp"])
     report["phase12"] = phase12(torch, np)
     report["phase13"] = phase13(torch, np)
-    report["phase14"] = phase14(torch, np)
+    report["phase14"], ds_model = phase14(torch, np)
+    # phase 16 runs on phase 14's deepseek-moe-16b, freed before phase 15
+    report["phase16"] = phase16(torch, np, ds_model)
+    del ds_model
+    torch.cuda.empty_cache()
     report["phase15"] = phase15(torch, np)
     totals = {k: v + sum(report[f"phase{p}"]["launch_totals"][k]
-                         for p in (7, 8, 9, 10, 11, 12, 13, 14, 15))
+                         for p in (7, 8, 9, 10, 11, 12, 13, 14, 15, 16))
               for k, v in report["phase5"]["launch_totals"].items()}
     main_case = cases["seq0_b1"]
     launches = report["phase2"]["launches"] + sum(

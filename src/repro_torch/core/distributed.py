@@ -76,8 +76,9 @@ class Mesh:
     """A named device grid: ``devices`` (a numpy object array of
     ``torch.device``, one dimension per axis) and ``axis_names``.
     ``shape`` maps each axis name to its size, as JAX's ``Mesh.shape``.
-    Entries may repeat. Unhashable, so an engine given a mesh is private
-    to its caller (``core.engine.get_engine``)."""
+    Entries may repeat, and may be ``meta`` devices (shapes only: the
+    dry-run's production meshes). Unhashable, so an engine given a mesh is
+    private to its caller (``core.engine.get_engine``)."""
 
     __hash__ = None
 

@@ -26,7 +26,8 @@ def resolve_device(device: str | torch.device | None = DEFAULT_DEVICE
     Raises ``RuntimeError`` when a CUDA device is asked for and PyTorch
     sees none, and ``ValueError`` when its index is beyond
     ``torch.cuda.device_count()``; tests and CPU users pass
-    ``device="cpu"`` explicitly.
+    ``device="cpu"`` explicitly. ``"meta"`` (shapes only: the dry-run's
+    devices) is accepted too.
     """
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -38,7 +39,7 @@ def resolve_device(device: str | torch.device | None = DEFAULT_DEVICE
         if dev.index >= count:
             raise ValueError(f"device {str(dev)!r} requested but this "
                              f"machine has {count} CUDA device(s)")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or "
                          "'cpu'")
     return dev

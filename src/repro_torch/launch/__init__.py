@@ -1,2 +1,3 @@
 """Entry points of the port (``python -m repro_torch.launch.registration``,
-``python -m repro_torch.launch.serve``)."""
+``.serve``, ``.train`` and ``.dryrun``) and the partition rules
+(``launch.mesh``, ``launch.partition``, ``launch.specs``)."""

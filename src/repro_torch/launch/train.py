@@ -10,16 +10,13 @@ resumes from the latest checkpoint if present, and runs the straggler
 watchdog; prints the reference's lines and returns the step losses.
 Weights are random, from ``lm.init_params_numpy(cfg, seed)`` (JAX's PRNG
 cannot be reproduced); the optimizer is ``pick_optimizer``'s with
-``cosine_schedule(lr, 20, max(steps, 21))``. There is no mesh (ROADMAP
-queue 1 item 8.4): the reference builds one when it sees several devices
-and never uses it.
+``cosine_schedule(lr, 20, max(steps, 21))``. It builds no mesh: the
+reference builds one when it sees several devices and never uses it.
 """
 from __future__ import annotations
 
 import argparse
 import time
-
-import torch
 
 from repro_torch.configs import get_config, get_smoke, list_archs
 from repro_torch.data.tokens import PrefetchLoader, TokenStream

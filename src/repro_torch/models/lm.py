@@ -1,5 +1,5 @@
-"""Config-driven decoder LM: forward and loss / prefill / decode (port of
-``repro.models.lm`` without its sharding rules).
+"""Config-driven decoder LM: forward and loss / prefill / decode, and the
+logical sharding rules of its leaves (port of ``repro.models.lm``).
 
 The reference tiles ``block_pattern`` over ``n_layers`` and splits the
 layers into a prefix (MoE-exception layers, unrolled), groups (a scan over
@@ -29,10 +29,18 @@ recurrent block), from ``models.ssm``; FFNs swiglu / geglu / gelu and the
 MoE FFN (``models.moe``) after an optional ``first_k_dense`` prefix of
 SwiGLU layers. A layer's decode state is the cache dict of an attention
 layer (K/V, or MLA's latent ``c`` and ``k_rope``) or the (conv state,
-recurrent state) tuple of an SSM layer. There are no sharding constraints
-(the reference's ``aconstraint`` is a no-op on one device; the partition
-rules and the expert-parallel MoE they select are ROADMAP queue 1 item
-8.4).
+recurrent state) tuple of an SSM layer. The reference's activation
+constraints (``aconstraint``) lay out nothing without a compiler and are
+left out; a MoE layer takes ``models.moe_ep``'s expert-parallel forward
+when an active ``launch.partition.partitioning`` context selects it
+(``_moe_dispatch``), else ``models.moe``'s.
+
+Sharding: ``PARAM_RULES`` maps the reference's leaf paths to logical axis
+names. ``param_logical_axes`` and ``cache_logical_axes`` give the
+reference's trees of names, over the reference's layout
+(``abstract_reference``, and ``reference_cache`` of ``init_cache(...,
+device="meta")``: ``groups`` leaves stacked, with a leading None), for
+``launch.partition.param_sharding``.
 
 Training: ``params_from_reference(..., trainable=True)`` (and
 ``init_params`` / ``init_abstract``) give a model whose leaves are all
@@ -51,6 +59,7 @@ from __future__ import annotations
 
 import functools
 import os
+import re
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -61,9 +70,11 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.partition import active_context
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import moe_ep
 from repro_torch.models import ssm as ssm_lib
 
 # Leaves cast to bf16 at load (the reference casts them at every use): the
@@ -494,6 +505,147 @@ def from_reference(cfg: ArchConfig, tree: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# logical sharding rules (path regex -> logical axis names per dim)
+# ---------------------------------------------------------------------------
+PARAM_RULES: list[tuple[str, tuple]] = [
+    (r"embed/table$", ("vocab", "fsdp")),
+    (r"lm_head/kernel$", ("fsdp", "vocab")),
+    (r"mixer/wq/kernel$", ("fsdp", "heads")),
+    (r"mixer/w[kv]/kernel$", ("fsdp", "kv_heads")),
+    (r"mixer/wo/kernel$", ("heads", "fsdp")),
+    (r"mixer/wq/bias$", ("heads",)),
+    (r"mixer/w[kv]/bias$", ("kv_heads",)),
+    (r"mixer/wdq/kernel$", ("fsdp", None)),
+    (r"mixer/wuq/kernel$", (None, "heads")),
+    (r"mixer/wdkv/kernel$", ("fsdp", None)),
+    (r"mixer/wu[kv]/kernel$", (None, "heads")),
+    (r"ffn/w[ig]/kernel$", ("fsdp", "mlp")),
+    (r"ffn/wo/kernel$", ("mlp", "fsdp")),
+    (r"ffn/shared/w[ig]/kernel$", ("fsdp", "mlp")),
+    (r"ffn/shared/wo/kernel$", ("mlp", "fsdp")),
+    (r"ffn/router/kernel$", ("fsdp", None)),
+    (r"ffn/wi$", ("expert", "fsdp", "expert_mlp")),
+    (r"ffn/wg$", ("expert", "fsdp", "expert_mlp")),
+    (r"ffn/wo$", ("expert", "expert_mlp", "fsdp")),
+    (r"mixer/in_proj/kernel$", ("fsdp", "mlp")),
+    (r"mixer/out_proj/kernel$", ("mlp", "fsdp")),
+    (r"mixer/w_gate/kernel$", ("fsdp", "mlp")),
+    (r"mixer/w_rec_in/kernel$", ("fsdp", "mlp")),
+    (r"mixer/w_[ai]/kernel$", (None, "mlp")),
+    (r"mixer/w_[ai]/bias$", ("mlp",)),
+    (r"mixer/w_out/kernel$", ("mlp", "fsdp")),
+    (r"mixer/conv_w$", (None, "mlp")),
+    (r"mixer/conv_b$", ("mlp",)),
+    (r"mixer/lambda$", ("mlp",)),
+    (r"mixer/(A_log|D|dt_bias)$", (None,)),
+    (r".*(norm.*/scale|q_norm|k_norm)$", (None,)),
+]
+
+
+def _map_paths(fn, tree, path: str = ""):
+    """``fn(path, leaf)`` at every leaf of nested dicts and tuples
+    (``path`` "/"-joined keys and tuple indices, as the reference's
+    ``_path_str``); keeps the structure."""
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, f"{path}/{k}" if path else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_paths(fn, v, f"{path}/{i}" if path else
+                                     str(i)) for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
+def abstract_reference(cfg: ArchConfig) -> dict:
+    """The reference's parameter tree (``groups`` leaves stacked) as fp32
+    ``meta`` tensors: the reference's ``init_abstract``."""
+    def leaf(v):
+        return (leaf_tree(v) if isinstance(v, dict) else
+                torch.empty(v[0], device="meta"))
+
+    def leaf_tree(t):
+        return {k: leaf(v) for k, v in t.items()}
+    return leaf_tree(param_shapes(cfg))
+
+
+def param_logical_axes(params_or_cfg):
+    """Tree of logical-name tuples over the reference's parameter layout
+    (an ``ArchConfig`` or a model: its ``abstract_reference``; or a
+    reference-layout tree of leaves with ``.shape``). Stacked ``groups``
+    leaves get a leading None for the repeat dim."""
+    cfg = getattr(params_or_cfg, "cfg", params_or_cfg)
+    tree = (abstract_reference(cfg) if isinstance(cfg, ArchConfig)
+            else params_or_cfg)
+
+    def one(ps, leaf):
+        names = None
+        for pat, nm in PARAM_RULES:
+            if re.search(pat, ps):
+                names = nm
+                break
+        ndim = len(leaf.shape)
+        if names is None:
+            names = (None,) * ndim
+        if ps.startswith("groups/"):
+            names = (None,) + tuple(names)
+        return tuple(names)[:ndim] + (None,) * max(0, ndim - len(names))
+    return _map_paths(one, tree)
+
+
+def reference_cache(cfg: ArchConfig, cache: list) -> dict:
+    """The port's per-layer decode states (``init_cache``, a list in
+    layer order) in the reference's cache layout: ``prefix`` / ``groups``
+    / ``suffix``, each ``groups`` leaf stacked over the repeats
+    (``torch.stack``: new tensors)."""
+    prefix, reps, suffix, _ = _layer_plan(cfg)
+    period = len(cfg.block_pattern)
+
+    def stack(states):
+        first = states[0]
+        if isinstance(first, dict):
+            return {k: stack([s[k] for s in states]) for k in first}
+        if isinstance(first, (list, tuple)):
+            return type(first)(stack([s[i] for s in states])
+                               for i in range(len(first)))
+        return torch.stack(states)
+
+    out: dict = {}
+    if prefix:
+        out["prefix"] = {str(i): cache[li] for i, li in enumerate(prefix)}
+    if reps:
+        base = len(prefix)
+        out["groups"] = {str(j): stack([cache[base + r * period + j]
+                                        for r in range(reps)])
+                         for j in range(period)}
+    if suffix:
+        out["suffix"] = {str(i): cache[li] for i, li in enumerate(suffix)}
+    return out
+
+
+def cache_logical_axes(cache):
+    """Batch dim -> ("batch",); kv-head dim of attention caches -> model,
+    over a cache in the reference's layout (:func:`reference_cache`)."""
+    def one(ps, leaf):
+        ndim = len(leaf.shape)
+        stacked = ps.startswith("groups/")
+        core = ndim - (1 if stacked else 0)
+        if ps.endswith("/pos"):
+            names: tuple = (None,) * core
+        elif ps.endswith("/k") or ps.endswith("/v"):
+            # kv_heads first; when it cannot shard (kv < TP), the sequence
+            # dim picks up the model axis instead (param_sharding's axis
+            # dedupe keeps them mutually exclusive)
+            names = ("batch", "kv_seq", "kv_heads", None)[:core]
+        elif ps.endswith("_scale"):
+            names = ("batch", "kv_seq", "kv_heads")[:core]
+        elif ps.endswith("/c") or ps.endswith("/k_rope"):
+            names = ("batch", "kv_seq", None)[:core]
+        else:  # ssm/conv states
+            names = ("batch",) + (None,) * (core - 1)
+        return (None,) + names if stacked else names
+    return _map_paths(one, cache)
+
+
 def _leaves(model: DecoderLM) -> list:
     return list(model.parameters()) + list(model.buffers())
 
@@ -514,6 +666,25 @@ def _layer_kinds(cfg: ArchConfig, li: int):
     return kind, _ffn_kind(cfg, li, kind)
 
 
+def _moe_dispatch(pf, h, moe_cfg):
+    """Pick the MoE implementation from the active partitioning rules:
+    ``moe_ep.moe_forward_ep`` (explicit all-to-all expert parallelism)
+    when ``moe_impl`` is "shard_map_ep", there is exactly one expert axis
+    and the sequence divides it; else the single-program
+    ``moe.moe_forward``."""
+    ctx = active_context()
+    if ctx is not None:
+        mesh, rules = ctx
+        expert_axes = rules.get("expert") or ()
+        expert_axes = ((expert_axes,) if isinstance(expert_axes, str)
+                       else tuple(expert_axes))
+        if (rules.get("moe_impl") == "shard_map_ep"
+                and len(expert_axes) == 1
+                and h.shape[1] % mesh.shape[expert_axes[0]] == 0):
+            return moe_ep.moe_forward_ep(pf, h, moe_cfg, mesh, rules)
+    return moe_lib.moe_forward(pf, h, moe_cfg)
+
+
 def _ffn_apply(p, x, cfg: ArchConfig, ffn_kind: str):
     """-> (x + the FFN's output, the layer's MoE aux loss or None)."""
     if ffn_kind == "none":
@@ -521,7 +692,7 @@ def _ffn_apply(p, x, cfg: ArchConfig, ffn_kind: str):
     h = L.rmsnorm(p["ffn_norm"], x, cfg.rms_eps)
     aux = None
     if ffn_kind == "moe":
-        h, metrics = moe_lib.moe_forward(p["ffn"], h, moe_config(cfg))
+        h, metrics = _moe_dispatch(p["ffn"], h, moe_config(cfg))
         aux = metrics["moe_aux_total"]
     elif ffn_kind == "gelu":
         h = L.gelu_mlp(p["ffn"], h)

@@ -25,13 +25,15 @@ As in the reference, and where the card could compute otherwise:
     the sorted pairs. ``index_add_`` on the card adds through atomics in no
     fixed order.
 This is the single-program path the reference runs without a mesh;
-expert parallelism (``repro.models.moe_ep``) waits for the partition
-rules that select it (ROADMAP queue 1 item 8.4).
+``models.moe_ep`` is the expert-parallel one, which ``lm._moe_dispatch``
+picks under partition rules that select it.
 """
 from __future__ import annotations
 
 import dataclasses
+import zlib
 
+import numpy as np
 import torch
 
 from repro_torch.device import check_fp32_matmul
@@ -51,21 +53,52 @@ class MoEConfig:
     z_loss_coef: float = 0.001
 
 
+def moe_init_numpy(cfg: MoEConfig, seed: int = 0, path: str = "") -> dict:
+    """One MoE FFN's weights in the reference's ``moe_init`` layout as fp32
+    numpy: the fp32 router (d, E), the raw experts ``wi`` / ``wg`` (E, d,
+    f) and ``wo`` (E, f, d), and the shared SwiGLU if any, each leaf
+    normal(0.02) from its own generator seeded by (seed, crc32 of
+    ``path``/its name), as ``lm.init_params_numpy`` draws a layer's."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_expert
+    shapes = {"router/kernel": (d, e), "wi": (e, d, f), "wg": (e, d, f),
+              "wo": (e, f, d)}
+    if cfg.n_shared_experts:
+        w = cfg.n_shared_experts * f
+        shapes.update({"shared/wi/kernel": (d, w), "shared/wg/kernel": (d, w),
+                       "shared/wo/kernel": (w, d)})
+    out: dict = {}
+    for name, shape in shapes.items():
+        key = f"{path}/{name}" if path else name
+        rng = np.random.default_rng([seed, zlib.crc32(key.encode())])
+        arr = rng.standard_normal(shape, dtype=np.float32)
+        arr *= np.float32(0.02)
+        node = out
+        *parents, leaf = name.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = arr
+    return out
+
+
 def route(logits: torch.Tensor, cfg: MoEConfig):
-    """logits (T,E) fp32 -> (weights (T,k), idx (T,k), aux_metrics)."""
+    """logits (T,E) fp32 -> (weights (T,k), idx (T,k), aux_metrics); a
+    leading batch dim (a batch of token blocks, ``models.moe_ep``) routes
+    each block alone, with per-block metrics."""
     probs = torch.softmax(logits, dim=-1)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    weights, idx = weights[:, :cfg.top_k], idx[:, :cfg.top_k]
+    weights, idx = weights[..., :cfg.top_k], idx[..., :cfg.top_k]
     if cfg.normalize_topk:
         weights = weights / torch.clamp_min(
             weights.sum(dim=-1, keepdim=True), 1e-9)
     # Switch-style load-balance loss + router z-loss.
     e = cfg.n_experts
-    me = probs.mean(dim=0)                                        # (E,)
-    assigned = torch.nn.functional.one_hot(idx, e).float().sum(1)  # (T,E)
-    fe = assigned.mean(dim=0) / cfg.top_k
-    aux = e * torch.sum(fe * me)
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    me = probs.mean(dim=-2)                                       # (E,)
+    # one_hot's values without its range check (a host sync on the card)
+    experts = torch.arange(e, device=idx.device)
+    assigned = (idx[..., None] == experts).float().sum(-2)       # (T,E)
+    fe = assigned.mean(dim=-2) / cfg.top_k
+    aux = e * torch.sum(fe * me, dim=-1)
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2, dim=-1)
     return weights, idx, {"load_balance_loss": aux, "router_z_loss": z}
 
 
@@ -76,16 +109,25 @@ def capacity(n_tokens: int, cfg: MoEConfig) -> int:
 
 def expert_mlp(p, buf: torch.Tensor, compute_dtype=L.COMPUTE_DTYPE
                ) -> torch.Tensor:
-    """buf: (E, C, d) -> (E, C, d), batched SwiGLU over the expert dim."""
+    """buf: (..., E, C, d) -> (..., E, C, d), batched SwiGLU over the
+    expert dim (and any leading dims the weights share)."""
     xb = buf.to(compute_dtype)
     wi, wg, wo = (p[n].to(compute_dtype) for n in ("wi", "wg", "wo"))
-    h = L.silu(torch.bmm(xb, wg)) * torch.bmm(xb, wi)
-    return torch.bmm(h, wo)
+    h = L.silu(torch.matmul(xb, wg)) * torch.matmul(xb, wi)
+    return torch.matmul(h, wo)
 
 
 def _router_logits(p, flat: torch.Tensor) -> torch.Tensor:
     check_fp32_matmul(flat)
     return flat.float() @ p["router"]["kernel"].float()
+
+
+def rows_of(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for a 1-D ``idx``; for a (B, M) ``idx`` (a batch of
+    blocks) each block's rows of its own ``x[b]``: ``x[b, idx[b]]``."""
+    if idx.dim() == 1:
+        return x[idx]
+    return x[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
 
 
 def dispatch(idx: torch.Tensor, c: int, n_experts: int):
@@ -94,16 +136,18 @@ def dispatch(idx: torch.Tensor, c: int, n_experts: int):
     index (token * k + its rank in the token's top-k), its token and
     expert, its row of the (E*C, d) expert buffer, and whether it is within
     its expert's capacity ``c`` (the earliest tokens of an expert are
-    kept)."""
-    t, k = idx.shape
-    pair_e = idx.reshape(t * k)                       # expert of each pair
-    order = torch.argsort(pair_e, stable=True)
-    se = pair_e[order]
+    kept). A (B, T, k) ``idx`` sorts each block alone: (B, T*k) each."""
+    *lead, t, k = idx.shape
+    pair_e = idx.reshape(*lead, t * k)                # expert of each pair
+    order = torch.argsort(pair_e, dim=-1, stable=True)
+    se = torch.gather(pair_e, -1, order)
     st_tok = torch.div(order, k, rounding_mode="floor")
     # first sorted pair of each expert: the reference's cumsum - bincount
-    starts = torch.searchsorted(se, torch.arange(n_experts,
-                                                 device=idx.device))
-    pos = torch.arange(t * k, device=idx.device) - starts[se]
+    experts = torch.arange(n_experts, device=idx.device)
+    starts = torch.searchsorted(se, experts.expand(*lead, n_experts)
+                                .contiguous())
+    pos = (torch.arange(t * k, device=idx.device)
+           - torch.gather(starts, -1, se))
     keep = pos < c
     return order, st_tok, se, se * c + pos, keep
 
@@ -112,14 +156,14 @@ def combine(rows: torch.Tensor, st_tok: torch.Tensor, se: torch.Tensor,
             t: int, n_experts: int) -> torch.Tensor:
     """The reference's ``zeros((t, d)).at[st_tok].add(rows)`` over rows in
     the sorted pair order, with its bits: each token's k rows in ascending
-    expert order, added one at a time from zero in the rows' dtype."""
-    k = rows.shape[0] // t
-    by_token = rows[torch.argsort(st_tok * n_experts + se)]
-    by_token = by_token.reshape(t, k, rows.shape[1])
-    out = torch.zeros((t, rows.shape[1]), dtype=rows.dtype,
-                      device=rows.device)
-    for j in range(k):
-        out = out + by_token[:, j]
+    expert order, added one at a time from zero in the rows' dtype. Rows
+    (B, T*k, d) of a batch of blocks combine each block alone."""
+    *lead, tk, d = rows.shape
+    by_token = rows_of(rows, torch.argsort(st_tok * n_experts + se, dim=-1))
+    by_token = by_token.reshape(*lead, t, tk // t, d)
+    out = torch.zeros((*lead, t, d), dtype=rows.dtype, device=rows.device)
+    for j in range(tk // t):
+        out = out + by_token[..., j, :]
     return out
 
 

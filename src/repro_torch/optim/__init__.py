@@ -1,6 +1,6 @@
-"""AdamW and Adafactor, and the learning-rate schedule (port of
-``repro.optim``; its ``compression`` waits for the data-parallel mesh,
-ROADMAP queue 1 item 8.4)."""
+"""AdamW and Adafactor, the learning-rate schedule, and the int8
+error-feedback data-parallel mean in ``optim.compression`` (port of
+``repro.optim``)."""
 from repro_torch.optim.optimizers import (OptState, Optimizer, adafactor,
                                           adamw, clip_by_global_norm,
                                           pick_optimizer)

@@ -23,8 +23,10 @@ on the reference's leaves (``models.lm.reference_layout``; a model without
 an arch config, every parameter its own leaf): its state is keyed by the
 reference's "/"-joined paths, each step stacks a leaf's gradients and
 parameters, and writes the updated repeats back.
-``Optimizer.state_logical_axes`` has no counterpart on one device
-(ROADMAP queue 1 item 8.4).
+``Optimizer.state_logical_axes(param_axes)`` gives the state's logical
+axes over the reference's state layout (``train_step.state_to_reference``):
+AdamW's ``m`` / ``v`` mirror the parameters, Adafactor's factored moments
+take a leaf's names but the last (``vr``) or the second last (``vc``).
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.launch.partition import map_names
 from repro_torch.models import lm
 
 f32 = np.float32
@@ -50,6 +53,12 @@ class Optimizer:
     update: Callable[[dict, OptState, torch.nn.Module],
                      tuple[torch.nn.Module, OptState]]
     name: str = ""
+    axes_fn: Callable[[Any], OptState] | None = None
+
+    def state_logical_axes(self, param_axes):
+        """Optimizer-state logical axes mirroring param axes (a tree of
+        logical-name tuples in the reference's parameter layout)."""
+        return self.axes_fn(param_axes)
 
 
 def clip_by_global_norm(grads: dict, max_norm: float):
@@ -102,7 +111,9 @@ def adamw(lr_fn, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         torch._foreach_sub_(p, delta)
         return params, OptState(step=step, inner=state.inner)
 
-    return Optimizer(init=init, update=update, name="adamw")
+    return Optimizer(init=init, update=update, name="adamw",
+                     axes_fn=lambda param_axes: OptState(
+                         step=(), inner={"m": param_axes, "v": param_axes}))
 
 
 def leaf_groups(params) -> list:
@@ -176,7 +187,16 @@ def adafactor(lr_fn, decay: float = 0.99, eps: float = 1e-30,
                 named[name].copy_(new[r] if stacked else new)
         return params, OptState(step=step, inner=state.inner)
 
-    return Optimizer(init=init, update=update, name="adafactor")
+    def axes_fn(param_axes):
+        def one(names):
+            if len(names) >= 2:
+                return {"vr": names[:-1], "vc": names[:-2] + names[-1:]}
+            return {"v": names}
+        return OptState(step=(), inner=map_names(
+            lambda names, _: one(names), param_axes))
+
+    return Optimizer(init=init, update=update, name="adafactor",
+                     axes_fn=axes_fn)
 
 
 def pick_optimizer(total_params: int, lr_fn) -> Optimizer:

@@ -18,8 +18,14 @@ The ops of the training path all have one: the backward of the embedding
 lookup and of the MoE's row gathers (``index_put_`` with accumulation)
 adds repeated rows in a fixed order on the card with or without the mode.
 
-``grad_shardings`` and ``state_logical_axes`` have no counterpart on one
-device (ROADMAP queue 1 item 8.4).
+``state_logical_axes`` gives the state's logical axes over the
+reference's state layout (``state_to_reference``), for
+``launch.partition.param_sharding``. ``make_train_step(...,
+grad_shardings=)`` takes the parameters' shardings (a tree of
+``ShardSpec`` in that layout) and checks them against the parameter tree;
+as in the reference, they change no value, so a step gives the same bits
+with and without them (the reference pins its accumulation buffer to them
+for GSPMD; the port lays out nothing).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.partition import ShardSpec
 from repro_torch.models import lm
 from repro_torch.optim import Optimizer
 from repro_torch.optim.optimizers import OptState
@@ -88,15 +95,57 @@ def _on(batch: dict, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
+def state_logical_axes(cfg: ArchConfig, optimizer: Optimizer
+                       ) -> TrainState:
+    """Logical axes of the state in the reference's layout
+    (``state_to_reference``): the parameters' and the optimizer's."""
+    p_axes = lm.param_logical_axes(cfg)
+    return TrainState(params=p_axes,
+                      opt_state=optimizer.state_logical_axes(p_axes))
+
+
+def check_grad_shardings(cfg: ArchConfig, grad_shardings) -> None:
+    """Raise ``ValueError`` unless ``grad_shardings`` has a sharding (a
+    ``ShardSpec``) for each leaf of the reference's parameter tree and for
+    nothing else, each one that splits its leaf evenly."""
+    shapes = lm.param_shapes(cfg)
+    seen = 0
+
+    def walk(node, ref, path):
+        nonlocal seen
+        if not isinstance(node, dict) or set(node) != set(ref):
+            raise ValueError(f"grad_shardings at {'/'.join(path) or '/'}: "
+                             f"not the parameter tree's keys")
+        for k, v in node.items():
+            if isinstance(ref[k], dict):
+                walk(v, ref[k], path + (k,))
+                continue
+            shape = ref[k][0]
+            if not isinstance(v, ShardSpec) or len(v.spec) > len(shape):
+                raise ValueError(f"grad_shardings {'/'.join(path + (k,))}: "
+                                 f"{v!r} does not fit a {shape} leaf")
+            v.shard_shape(shape)
+            seen += 1
+    walk(grad_shardings, shapes, ())
+    if seen != len(lm.reference_layout(cfg)):
+        raise ValueError("grad_shardings does not cover every leaf")
+
+
 def make_train_step(cfg: ArchConfig, optimizer: Optimizer,
-                    remat: str = "full", accum_steps: int = 1):
+                    remat: str = "full", accum_steps: int = 1,
+                    grad_shardings=None):
     """-> train_step(state, batch) -> (state, metrics).
 
     ``accum_steps > 1`` splits the batch's leading dim into microbatches
     and accumulates fp32 gradients (autograd adds each microbatch's into
     ``.grad``: 0 + g1 + g2 ..., the reference's scan); the gradients and
     the loss are divided by ``accum_steps``, and only ``loss`` is
-    returned, as in the reference (``metrics = {}`` on that path)."""
+    returned, as in the reference (``metrics = {}`` on that path).
+    ``grad_shardings`` (optional, the parameters' ``ShardSpec`` tree in
+    the reference's layout) is checked against the parameter tree
+    (:func:`check_grad_shardings`) and changes no value."""
+    if grad_shardings is not None:
+        check_grad_shardings(cfg, grad_shardings)
 
     def train_step(state: TrainState, batch: dict):
         params = state.params

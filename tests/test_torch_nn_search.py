@@ -18,8 +18,8 @@ from _torch_threads import one_torch_thread  # noqa: F401
 from repro.core.nn_search import nn_search as j_nn_search
 from repro.kernels.ops import nn_search_pallas
 from repro_torch.core.nn_search import nn_search
-from repro_torch.kernels import ops, ref
 from repro_torch.data.collate import DEFAULT_BUCKETS
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.nn_search import (BLOCK_N, TILE_M,
                                            check_kernel_shapes,
                                            nn_search_kernel, num_splits)
